@@ -13,8 +13,13 @@ exits non-zero):
      truth at most 2x the plain bf16 error + 1e-3); pyramid peaks at the
      4-scale 368x368 geometry (same peak mask, values within 1e-5);
      sample at the (8, 19, 96, 96, 10) point shape (within 1e-5); assoc
-     bit-equal on a planted scene's candidates and on random tables;
-  c. the main path: a full-width estimator (VGG19 + 6 stages, boxsize
+     bit-equal on a planted scene's candidates and on random tables; gt
+     at the training shape (10, 24, 18, 3) joints on the 46x46 grid (the
+     same heat > 0 and band masks, values within 1e-6). Beside each
+     kernel's time: its bound on this card (the larger of bytes moved
+     over 3.35 TB/s and operations over the peak rate of their type,
+     counted from this run's inputs);
+  c. the inference path: a full-width estimator (VGG19 + 6 stages, boxsize
      368, bf16, seeded random weights) runs process_batch on 368x368
      uint8 images, batch 8 over the 4-scale pyramid and batch 16 at scale
      1.0; every kernel's launch count over that run must be > 0, and the
@@ -24,9 +29,30 @@ exits non-zero):
      on the CPU;
   e. timings: images/s (4 scales, batch 8; scale 1.0, batch 16), batch-1
      latency, a network/decode split, per-kernel ms against the plain
-     version.
+     version; train steps/s at batch 10 with a device split (augment, GT
+     kernel, forward + backward, update) and peak memory; every device
+     time is taken with the calls queued behind a long matrix product, so
+     that it holds no host enqueue time;
+  f. the training path at full width: train() takes 5 steps of the
+     default configuration as it stands (batch 10, 24 persons, bf16,
+     base_lr 4e-5) on the card: 13 finite losses per step, the gt kernel
+     launched once per step and block1 never; 5 more steps with
+     clip_norm 5 leave a checkpoint, and a trainer restored from it takes
+     the same next step, bit for bit, as the uninterrupted one; with a fixed augmentation the total loss over 5
+     steps is shown for the default in bf16, the default in f32 and
+     clip_norm 5 in bf16, and must fall in one of them (from a random
+     init the default rate is past its stable value, see PERF.md); the f32
+     run is repeated with torch.optim.SGD and a loss written out in this
+     script, and must take the same steps; 3
+     steps with the VGG base frozen leave every vgg tensor bit-identical
+     and move stage 2;
+  g. one small train step (2 stages, boxsize 64, batch 2, 3 persons) on
+     the card against the CPU: per-head losses within 1e-4 relative in
+     f32; with the network's arithmetic in f64 (no ReLU within rounding of
+     zero decides differently) the updated f32 parameters within 1e-5.
 
-The last three lines are the kernels' JSON record, the card's name and
+The phase e and f lines are printed once more at the end; the last three
+lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero before
 printing any result.
@@ -40,12 +66,18 @@ import subprocess
 import sys
 import time
 
-os.environ.pop("JAX_PLATFORMS", None)   # the port never imports jax
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
+F32_FLOPS = 67e12             # outside the tensor cores
+BF16_FLOPS = 989e12           # tensor cores, dense
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+_SAID: list[str] = []
+
+
 def _say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    _SAID.append(f"[{phase}] {msg}")
+    print(_SAID[-1], flush=True)
 
 
 def _card() -> str:
@@ -57,11 +89,16 @@ def _card() -> str:
 
 
 def _ms(torch, fn, reps: int) -> float:
-    """Mean device ms of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    """Mean device ms of ``fn`` over ``reps`` calls (CUDA events). The calls
+    are queued behind a long matrix product, so the two events bracket what
+    the device runs and not the host's enqueue cost, which for the shortest
+    kernels is the longer of the two."""
     fn()
+    ballast = torch.empty((8192, 8192), device="cuda").normal_()    # freed on return
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.mm(ballast, ballast)
     start.record()
     for _ in range(reps):
         fn()
@@ -79,7 +116,21 @@ def _alternate(torch, plain, kernel, reps: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _bound(n_bytes: float, ops: float, rate: float) -> dict:
+    """The least ms this card could take: bytes at the memory rate or
+    operations at ``rate``, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def main() -> int:
+    import dataclasses
+    import tempfile
+
     import numpy as np
     import torch
 
@@ -87,21 +138,29 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from tpupose import topology
-    from tpupose.config import DEFAULT
-    from tpupose_torch import ops
+    from tpupose_torch import ops, topology
+    from tpupose_torch.config import DEFAULT, AugmentConfig, ModelConfig, PoseConfig, TrainConfig
+    from tpupose_torch.data.pipeline import synthetic_batches
     from tpupose_torch.decode import paf as paf_mod
     from tpupose_torch.decode import peaks as peaks_mod
     from tpupose_torch.decode.api import decode_impl_batch, to_people
-    from tpupose_torch.decode.scalespace import ScaleSpace
+    from tpupose_torch.decode.scalespace import ScaleSpace, chain_matrices, scale_shapes
+    from tpupose_torch.gt import augment as gt_augment
+    from tpupose_torch.gt import rasterize as gt_rasterize
     from tpupose_torch.infer import PoseEstimator
     from tpupose_torch.models import OpenPose
     from tpupose_torch.ops import assoc as assoc_mod
     from tpupose_torch.ops import block1 as block1_mod
+    from tpupose_torch.ops import gt as gt_mod
     from tpupose_torch.ops import image
     from tpupose_torch.ops import pyramid_peaks as pp_mod
     from tpupose_torch.ops import sample as sample_mod
     from tpupose_torch.testing import planted_scene
+    from tpupose_torch.training import checkpoint as ckpt_lib
+    from tpupose_torch.training import create_state, make_train_step
+    from tpupose_torch.training import loss as loss_lib
+    from tpupose_torch.training.loop import step_generator, train
+    from tpupose_torch.training.optimizer import multipliers, param_labels
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -127,7 +186,11 @@ def main() -> int:
     wts = (rand((3, 3, 3, 64), 0.2), rand((64,), 0.1), rand((3, 3, 64, 64), 0.05),
            rand((64,), 0.1))
     errs, times = [], []
+    b1_bytes = b1_flops = 0
     for _, _, ph, pw in sizes:
+        # x read as f32, the pooled bf16 output written; 2 x (27 + 576) x 64 per pixel
+        b1_bytes += 8 * ph * pw * 3 * 4 + 8 * (ph // 2) * (pw // 2) * 64 * 2
+        b1_flops += 8 * ph * pw * 2 * (27 + 576) * 64
         x = torch.from_numpy(rng.uniform(-0.5, 0.5, (8, ph, pw, 3)).astype(np.float32)).to(dev)
         got = block1_mod.block1(x, *wts)
         plain = block1_mod.block1_plain(x, *wts)
@@ -143,7 +206,10 @@ def main() -> int:
         times.append(_alternate(torch, lambda: block1_mod.block1_plain(x, *wts),
                                 lambda: block1_mod.block1(x, *wts), 5))
     record["block1"] = {"max_abs_err": max(errs), "ms": sum(t[0] for t in times),
-                        "plain_ms": sum(t[1] for t in times)}
+                        "plain_ms": sum(t[1] for t in times),
+                        **_bound(b1_bytes + _nbytes(*wts), b1_flops, BF16_FLOPS),
+                        # the two cuDNN convolutions of the plain version
+                        "library_ms": sum(t[1] for t in times)}
     _say("b", "block1 ms per 4-scale batch of 8 (184/368/552/736): kernel "
               + "/".join(f"{t[0]:.3f}" for t in times) + ", plain "
               + "/".join(f"{t[1]:.3f}" for t in times) + f" ({card})")
@@ -167,7 +233,20 @@ def main() -> int:
     k_ms, p_ms = _alternate(
         torch, lambda: pp_mod.pyramid_peak_scores_plain(heat_space, 18, icfg.peak_sigma, icfg.thre1),
         lambda: pp_mod.pyramid_peak_scores(heat_space, 18, icfg.peak_sigma, icfg.thre1), 5)
-    record["pyramid_peaks"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+    # the blurred map everywhere (left and right products per image, channel
+    # and scale), the averaged map at this run's peaks only; the operator
+    # matrices are banded, so only their non-zero entries count
+    n_peaks = int(mask.sum())
+    pp_flops = 0
+    chain = chain_matrices(scale_shapes(heat_space), heat_space.out_hw, float(icfg.peak_sigma))
+    for m, (wy, wx, ay, bx) in zip(heat_space.maps, chain):
+        wl = m.shape[2]
+        pp_flops += 8 * 18 * 2 * (np.count_nonzero(ay) * wl + 368 * np.count_nonzero(bx))
+        taps_y, taps_x = np.count_nonzero(wy) / 368, np.count_nonzero(wx) / 368
+        pp_flops += n_peaks * 2 * (taps_y * taps_x + taps_x)
+    record["pyramid_peaks"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                               **_bound(_nbytes(*heat_space.maps, got), pp_flops, F32_FLOPS),
+                               "library_ms": None}
     _say("b", f"pyramid peaks batch 8, 4 scales -> 368x368: {int(mask.sum())} peaks, same mask, "
               f"max err {err:.3e} (<= 1e-5): pass; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms ({card})")
 
@@ -185,7 +264,12 @@ def main() -> int:
         raise AssertionError(f"sample: max err {err}")
     k_ms, p_ms = _alternate(torch, lambda: sample_mod.sample_avg_plain(paf_space, iy, ix, chans),
                             lambda: sample_mod.sample_avg(paf_space, iy, ix, chans), 3)
-    record["sample"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+    # per point and scale: 2 axes x ~30 operations for the taps, then
+    # 2 channels x (16 + 4) multiply-adds
+    record["sample"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        **_bound(_nbytes(*paf_space.maps, iy, ix, got),
+                                 iy.numel() * len(paf_space.maps) * (60 + 2 * 20 * 2), F32_FLOPS),
+                        "library_ms": None}
     _say("b", f"sample {tuple(shape)} points x 4 scales: max err {err:.3e} (<= 1e-5): pass; "
               f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms ({card})")
 
@@ -221,9 +305,56 @@ def main() -> int:
         _say("b", f"assoc on {name}: {int(want['active'].sum())} rows, bit-equal: pass")
     k_ms, p_ms = _alternate(torch, lambda: assoc_mod.assoc_plain(*random_tables, **kw),
                             lambda: assoc_mod.assoc(*random_tables, **kw), 2)
-    record["assoc"] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms}
+    # a sequential walk: ~10 integer operations per finite candidate of this
+    # run's tables (counted at the f32 rate) and per accepted connection
+    visited = int(torch.isfinite(random_tables[0]).sum()) + int(want["active"].sum()) * 19
+    record["assoc"] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+                       **_bound(_nbytes(*random_tables, *want.values()), 10 * visited, F32_FLOPS),
+                       "library_ms": None}
     _say("b", f"assoc batch 8, K=96, 512 candidates/limb: kernel {k_ms:.3f} ms, "
               f"plain {p_ms:.3f} ms ({card})")
+
+    # gt: the training shape, some joints absent, two persons overlapping,
+    # one sample empty, a random mask
+    tcfg = DEFAULT
+    n_b, n_p, lab = tcfg.train.batch_size, tcfg.augment.max_persons, tcfg.model.label_size
+    jn = np.full((n_b, n_p, 18, 3), 2.0, np.float32)
+    live = 6
+    jn[:, :live, :, :2] = rng.uniform(0, tcfg.model.boxsize, (n_b, live, 18, 2))
+    jn[:, :live, :, 2] = rng.choice([0.0, 1.0, 2.0], (n_b, live, 18), p=[0.6, 0.2, 0.2])
+    jn[0, 1] = jn[0, 0] + np.asarray([3.0, -2.0, 0.0], np.float32)
+    jn[-1, :, :, 2] = 2.0
+    gj = torch.from_numpy(jn).to(dev)
+    gm = torch.from_numpy(rng.uniform(size=(n_b, lab, lab)).astype(np.float32)).to(dev)
+    gt_kw = dict(label_size=lab, stride=tcfg.model.stride, sigma=tcfg.augment.sigma,
+                 paf_thre=tcfg.augment.paf_thre)
+    got = gt_mod.create_labels(gj, gm, **gt_kw)
+    want = gt_mod.create_labels_plain(gj, gm, **gt_kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("paf", "heat"), got, want):
+        if g.shape != w.shape or not torch.equal(g != 0, w != 0):
+            raise AssertionError(f"gt {name}: {int(((g != 0) != (w != 0)).sum())} mask flips")
+        err = max(err, (g - w).abs().max().item())
+    if not err <= 1e-6:
+        raise AssertionError(f"gt: max err {err}")
+    k_ms, p_ms = _alternate(torch, lambda: gt_mod.create_labels_plain(gj, gm, **gt_kw),
+                            lambda: gt_mod.create_labels(gj, gm, **gt_kw), 5)
+    # per pixel: ~9 operations (and an exp) per present joint, ~11 per live limb,
+    # ~100 to finish the 57 channels — of this run's joints
+    present = jn[..., 2] < 2.0
+    limbs = np.asarray(topology.LIMBS)
+    live_limbs = present[:, :, limbs[:, 0]] & present[:, :, limbs[:, 1]]
+    gt_flops = lab * lab * (9.0 * present.sum() + 11.0 * live_limbs.sum() + 100.0 * n_b)
+    record["gt"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                    **_bound(_nbytes(gj, gm, *got), gt_flops, F32_FLOPS), "library_ms": None}
+    _say("b", f"gt batch {n_b}, {n_p} persons, {lab}x{lab}: {int((want[1][..., :18] > 0).sum())} "
+              f"heat and {int((want[0] != 0).sum())} PAF entries, same masks, max err {err:.3e} "
+              f"(<= 1e-6): pass; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms ({card})")
+    for name, r in record.items():
+        _say("b", f"{name}: bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                  f"({r['bound_ms'] / r['ms']:.3f} of the kernel's {r['ms']:.4f} ms); "
+                  f"library call {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}")
 
     # --- c. the main path ---------------------------------------------------
     est = PoseEstimator(DEFAULT, seed=0, device="cuda")
@@ -233,17 +364,18 @@ def main() -> int:
     people8 = est.process_batch(imgs8)
     people16 = est.process_batch(imgs16, scales=(1.0,))
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts_infer = ops.launch_counts()
     if len(people8) != 8 or len(people16) != 16:
         raise AssertionError("process_batch returned the wrong number of images")
     for p in (pp for batch in (people8, people16) for img in batch for pp in img):
         vals = [p["score"]] + [v for kp in p["keypoints"].values() for v in kp.values()]
         if not np.isfinite(vals).all():
             raise AssertionError("non-finite value in the people JSON")
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {counts}")
+    inference_kernels = ("block1", "pyramid_peaks", "sample", "assoc")
+    if min(counts_infer[k] for k in inference_kernels) < 1 or counts_infer["gt"] != 0:
+        raise AssertionError(f"launches over the inference path: {counts_infer}")
     _say("c", f"process_batch 8x368x368 x 4 scales and 16x368x368 x scale 1.0: "
-              f"{sum(map(len, people8))} + {sum(map(len, people16))} people; launches {counts}")
+              f"{sum(map(len, people8))} + {sum(map(len, people16))} people; launches {counts_infer}")
     ref = OpenPose(DEFAULT.model.num_stages, dtype=torch.float32)
     ref.load_state_dict(est.model.state_dict())
     ref.to(dev, memory_format=torch.channels_last).eval()
@@ -317,10 +449,225 @@ def main() -> int:
               + " + ".join(f"{t:.2f}" for t in net_ms)
               + f" (184/368/552/736) = {sum(net_ms):.2f}, decode {dec_ms:.2f} ({card})")
 
+    # --- f. the training path at full width -------------------------------------
+    torch.backends.cudnn.deterministic = True        # for the bit-equal resume
+    # the default recipe as it stands; only the logging and checkpoint periods
+    # are set, so that 5 steps show every loss and leave a checkpoint
+    fcfg = dataclasses.replace(DEFAULT, train=dataclasses.replace(
+        DEFAULT.train, log_every=1, checkpoint_every=5))
+    batch = next(synthetic_batches(fcfg, seed=0))
+    seen: list[dict] = []
+    with tempfile.TemporaryDirectory() as workdir:
+        ops.reset_launch_counts()
+        ran = train(fcfg, [batch] * 5, workdir=workdir, max_steps=5, seed=0, device="cuda",
+                    on_step=lambda i, losses: seen.append(losses))
+        torch.cuda.synchronize()
+        counts_train = ops.launch_counts()
+        if ran["steps"] != 5 or len(seen) != 5:
+            raise AssertionError(f"train() took {ran['steps']} steps, logged {len(seen)}")
+        for i, losses in enumerate(seen):
+            if len(losses) != 13 or not np.isfinite(list(losses.values())).all():
+                raise AssertionError(f"step {i + 1}: losses {losses}")
+        if counts_train["gt"] != 5 or any(v for k, v in counts_train.items() if k != "gt"):
+            raise AssertionError(f"launches over 5 train steps: {counts_train}")
+        if ckpt_lib.latest_step(f"{workdir}/{fcfg.train.checkpoint_dir}") != 5:
+            raise AssertionError("train() left no checkpoint at step 5")
+        _say("f", f"train() 5 steps of the default recipe, batch {n_b}, "
+                  f"{fcfg.model.compute_dtype}: 13 finite losses "
+                  f"per step, total {seen[0]['total']:.4f} -> {seen[-1]['total']:.4f} (random "
+                  f"augmentation), a checkpoint at step 5; launches {counts_train}; "
+                  f"{ran['steps_per_sec']:.2f} steps/s with the first step's set-up")
+
+    # resume: a fresh trainer restored from a checkpoint vs the live state. Taken
+    # with clip_norm, the configuration's knob for training from scratch: the
+    # default recipe's step 6 from this random init is not finite (see below).
+    clipped = dataclasses.replace(fcfg, train=dataclasses.replace(fcfg.train, clip_norm=5.0))
+    with tempfile.TemporaryDirectory() as workdir:
+        ran = train(clipped, [batch] * 5, workdir=workdir, max_steps=5, seed=0, device="cuda")
+        model = OpenPose(num_stages=clipped.model.num_stages, dtype=torch.bfloat16)
+        model.reset_parameters(torch.Generator().manual_seed(123))
+        fresh, tx = create_state(clipped, model.state_dict(), "cuda")
+        restored = ckpt_lib.restore(f"{workdir}/{clipped.train.checkpoint_dir}", fresh.tree())
+        if restored is None or restored["step"] != 5:
+            raise AssertionError("no checkpoint at step 5 to restore")
+        step_fn = make_train_step(clipped, model, tx, loss_denom=n_b)
+        _, live_losses = step_fn(ran["state"], step_generator(0, 5), batch)
+        _, back_losses = step_fn(restored, step_generator(0, 5), batch)
+        for k in live_losses:
+            if not (torch.isfinite(live_losses[k]) and torch.equal(live_losses[k], back_losses[k])):
+                raise AssertionError(f"resume: {k} {float(back_losses[k])} != {float(live_losses[k])}")
+        for name, p in ran["state"]["params"].items():
+            if not torch.equal(p, restored["params"][name]):
+                raise AssertionError(f"resume: {name} differs after the next step")
+        _say("f", f"clip_norm 5.0: total {ran['last_losses']['total']:.4f} at step 5; its "
+                  f"checkpoint restored into a fresh trainer: step 6 bit-equal "
+                  f"(total {float(live_losses['total']):.6f}): pass")
+        del fresh, restored, ran
+
+    def descend(cfg, n_steps, draws):
+        """n_steps on ``batch`` with fixed augmentation draws, from the
+        seeded init: (first params, tree, totals)."""
+        model = OpenPose(num_stages=cfg.model.num_stages,
+                         dtype=getattr(torch, cfg.model.compute_dtype))
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        state, tx = create_state(cfg, model.state_dict(), "cuda")
+        start = {k: v.clone() for k, v in state.params.items()}
+        step_fn = make_train_step(cfg, model, tx, loss_denom=cfg.train.batch_size)
+        tree, totals = state.tree(), []
+        for _ in range(n_steps):
+            tree, losses = step_fn(tree, draws, batch)
+            totals.append(float(losses["total"]))
+        return start, tree, totals
+
+    fixed = gt_augment.batch_params(torch.Generator().manual_seed(0), fcfg.augment, n_b)
+    # From a random init the default recipe (base_lr 4e-5 x 4 on the stages,
+    # momentum 0.9, written for fine-tuning pretrained weights) is past its
+    # stable rate; the rate is not raised or lowered here. The fall is looked
+    # for with the default in bf16, then in f32, then with clip_norm, the
+    # configuration's own knob for training from scratch; all three are shown.
+    f32cfg = dataclasses.replace(fcfg, model=dataclasses.replace(
+        fcfg.model, compute_dtype="float32"))
+    fell_with, f32_totals = None, None
+    for label, cfg in (("the default recipe in bfloat16", fcfg),
+                       ("the default recipe in float32", f32cfg),
+                       ("clip_norm 5.0 in bfloat16", clipped)):
+        totals = descend(cfg, 5, fixed)[2]
+        falls = bool(np.isfinite(totals).all() and totals[-1] < totals[0])
+        if cfg is f32cfg:
+            f32_totals = totals
+        if falls and fell_with is None:
+            fell_with = label
+        _say("f", f"fixed augmentation, base_lr {cfg.train.base_lr}, {label}: total "
+                  + " -> ".join(f"{t:.6g}" for t in totals)
+                  + (": falls" if falls else ": does not fall"))
+    if fell_with is None:
+        raise AssertionError("the total loss fell over 5 steps in none of the three runs")
+    _say("f", f"the total loss falls over 5 steps with {fell_with}: pass")
+    frozen = dataclasses.replace(fcfg, train=fcfg.train.frozen_vgg())
+    start, tree, _ = descend(frozen, 3, fixed)
+    for name, p in tree["params"].items():
+        if name.startswith("vgg.") and not torch.equal(p, start[name]):
+            raise AssertionError(f"frozen VGG: {name} changed")
+    moved = (tree["params"]["stage2_L1.conv1.weight"] - start["stage2_L1.conv1.weight"]).abs().max().item()
+    if not moved > 0:
+        raise AssertionError("frozen VGG: stage2_L1.conv1.weight did not move")
+    _say("f", f"3 steps with the VGG base frozen: {sum(k.startswith('vgg.') for k in start)} vgg "
+              f"tensors bit-identical, stage2_L1.conv1.weight moved by {moved:.3e}: pass")
+    del start, tree
+    torch.backends.cudnn.deterministic = False
+
+    # --- g. one small train step, card against CPU -------------------------------
+    small = PoseConfig(model=ModelConfig(boxsize=64, num_stages=2, compute_dtype="float32"),
+                       augment=AugmentConfig(max_persons=3),
+                       train=TrainConfig(batch_size=2, base_lr=1e-4))
+    sbatch = next(synthetic_batches(small, 96, 96, seed=4))
+    sdraws = gt_augment.batch_params(torch.Generator().manual_seed(4), small.augment, 2)
+    for net_dtype in (torch.float32, torch.float64):
+        model = OpenPose(num_stages=2, dtype=net_dtype, head_dtype=net_dtype)
+        model.reset_parameters(torch.Generator().manual_seed(4))
+        res = {}
+        for d in ("cpu", "cuda"):
+            state, tx = create_state(small, model.state_dict(), d)
+            tree, losses = make_train_step(small, model, tx)(state.tree(), sdraws, sbatch)
+            res[d] = ({k: float(v) for k, v in losses.items()},
+                      {k: v.cpu() for k, v in tree["params"].items()})
+        rel = max(abs(res["cuda"][0][k] / res["cpu"][0][k] - 1.0) for k in res["cpu"][0])
+        dpar = max((res["cuda"][1][k] - v).abs().max().item() for k, v in res["cpu"][1].items())
+        if not rel <= 1e-4:
+            raise AssertionError(f"small step ({net_dtype}): losses differ by {rel} relative")
+        if net_dtype == torch.float64 and not dpar <= 1e-5:
+            raise AssertionError(f"small step (f64 network): parameters differ by {dpar}")
+        _say("g", f"small train step, network in {str(net_dtype)[6:]}, card vs CPU: losses within "
+                  f"{rel:.2e} relative (<= 1e-4), updated parameters within {dpar:.2e}"
+                  + (" (<= 1e-5)" if net_dtype == torch.float64 else " (reported)") + ": pass")
+
+    # --- e (training). steps/s and a device split at batch 10 ---------------------
+    from torch.func import functional_call
+
+    model = OpenPose(num_stages=fcfg.model.num_stages, dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state, tx = create_state(clipped, model.state_dict(), "cuda")      # stays finite
+    step_fn = make_train_step(clipped, model, tx, loss_denom=n_b)
+    tree = state.tree()
+    for i in range(2):
+        tree, _ = step_fn(tree, step_generator(1, i), batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_timed = 8
+    t = time.perf_counter()
+    for i in range(n_timed):
+        tree, losses = step_fn(tree, step_generator(1, 2 + i), batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / n_timed
+    train_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    on_dev = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    args = (on_dev["images"].float(), on_dev["masks"].float() / 255.0, on_dev["joints"],
+            on_dev["centers"], on_dev["scales"])
+    with torch.no_grad():
+        images_a, label_mask, joints_a = gt_augment.augment_batch(
+            fixed, *args, fcfg.model, fcfg.augment)
+        paf_gt, heat_gt = gt_rasterize.labels_for_config(joints_a, label_mask, fcfg.model,
+                                                         fcfg.augment)
+        aug_ms = _ms(torch, lambda: gt_augment.augment_batch(fixed, *args, fcfg.model,
+                                                             fcfg.augment), 5)
+        gt_ms = _ms(torch, lambda: gt_rasterize.labels_for_config(
+            joints_a, label_mask, fcfg.model, fcfg.augment), 20)
+    x_norm = image.normalize(images_a, fcfg.model.channel_order)
+    grads = {}
+
+    def fwd_bwd():
+        leaves = {k: v.detach().requires_grad_() for k, v in tree["params"].items()}
+        total = loss_lib.stagewise_losses(functional_call(model, leaves, (x_norm,)), paf_gt,
+                                          heat_gt, label_mask, n_b)["total"]
+        grads.update(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+
+    # a second witness that the default recipe itself leaves the stable range
+    # from this init: the same 5 f32 steps on the same targets with the
+    # library's SGD and a loss written out here, neither of them the port's
+    ref = OpenPose(num_stages=fcfg.model.num_stages, dtype=torch.float32)
+    ref.reset_parameters(torch.Generator().manual_seed(0))
+    ref.to(dev)
+    named = dict(ref.named_parameters())
+    mults, groups = multipliers(fcfg.train), {}
+    for name, label in param_labels(named).items():
+        groups.setdefault(label, []).append(named[name])
+    sgd = torch.optim.SGD(
+        [{"params": ps, "lr": fcfg.train.base_lr * mults[label],
+          "weight_decay": 2.0 * fcfg.train.weight_decay if label.endswith("_w") else 0.0}
+         for label, ps in groups.items()], lr=fcfg.train.base_lr, momentum=fcfg.train.momentum)
+    m = label_mask[..., None]
+    lib_totals = []
+    for _ in range(5):
+        sgd.zero_grad()
+        total = sum(((p.float() * m - paf_gt) ** 2).sum() + ((h.float() * m - heat_gt) ** 2).sum()
+                    for p, h in ref(x_norm)) / n_b / 2.0
+        total.backward()
+        sgd.step()
+        lib_totals.append(float(total.detach()))
+    gap = max(abs(a / b - 1.0) for a, b in zip(lib_totals[:4], f32_totals[:4]))
+    if not (gap <= 5e-2 and lib_totals[-1] > 1e6 and f32_totals[-1] > 1e6):
+        raise AssertionError(f"torch.optim.SGD went {lib_totals}, the trainer {f32_totals}")
+    _say("f", "the default recipe in float32 with torch.optim.SGD and a written-out loss: total "
+              + " -> ".join(f"{t:.6g}" for t in lib_totals) + f": within {gap:.1e} relative of "
+              f"the trainer's first 4 steps (<= 5e-2), and it too ends above 1e6: pass")
+    del ref, sgd, named, groups
+
+    fb_ms = _ms(torch, fwd_bwd, 5)
+    upd_ms = _ms(torch, lambda: tx.update(grads, tree["opt_state"], tree["params"]), 5)
+    _say("e", f"training, batch {n_b}, bf16, clip_norm 5.0: {1.0 / step_s:.3f} steps/s, "
+              f"{step_s * 1e3:.2f} ms per step (host clock, {n_timed} steps); device ms: augment {aug_ms:.3f}, GT kernel "
+              f"{gt_ms:.4f}, forward + backward {fb_ms:.2f}, update {upd_ms:.3f}; peak memory "
+              f"{train_gb:.2f} GiB ({card})")
+
+    print("the timings and the training path once more, for a reader of the last lines:",
+          flush=True)
+    for line in [line for line in _SAID if line[:3] in ("[e]", "[f]")]:
+        print(line, flush=True)
     kernels = []
     for kern in ops.KERNELS:
         kernels.append({"name": kern.name, "route": "cuda", "source": kern.source,
-                        "replaces": kern.replaces, "launches": counts[kern.name],
+                        "replaces": kern.replaces,
+                        "launches": counts_infer[kern.name] + counts_train[kern.name],
                         **record[kern.name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,14 +8,15 @@ imports no jax, so it also runs where only torch is installed:
 Tolerances: block1 within the bf16 bound of tests/test_pallas_block1.py
 (against an f32 truth); pyramid peaks the same peak mask and values
 within 1e-5; sample within 1e-5; assoc bit-equal; the decode's integer
-tables equal and floats within 1e-4.
+tables equal and floats within 1e-4; gt the same masks and values within
+1e-6; a small train step within 1e-4 (losses) of the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpupose.config import InferenceConfig
+from tpupose_torch.config import InferenceConfig
 from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.ops import block1 as block1_mod
 from tpupose_torch.ops import image
@@ -146,3 +147,83 @@ def test_planted_scene_decodes_on_cuda_as_on_cpu(cuda):
         else:
             assert torch.equal(g, v), key
     assert len(to_people({k: v[0].numpy() for k, v in cpu.items()})) == 2
+
+
+@pytest.mark.parametrize("shape", [(10, 24, 46, 8), (3, 5, 16, 4)])
+def test_gt_kernel(cuda, shape):
+    """csrc/gt.cu against create_labels_plain: the same heat > 0 and band
+    masks, values within 1e-6 (expf against torch.exp)."""
+    from tpupose_torch.ops import gt as gt_mod
+
+    n, persons, label, stride = shape
+    rng = np.random.default_rng(n)
+    j = np.full((n, persons, 18, 3), 2.0, np.float32)
+    live = persons // 2
+    j[:, :live, :, :2] = rng.uniform(0, label * stride, (n, live, 18, 2))
+    j[:, :live, :, 2] = rng.choice([0.0, 1.0, 2.0], (n, live, 18), p=[0.6, 0.2, 0.2])
+    j[0, 1] = j[0, 0] + np.asarray([3.0, -2.0, 0.0], np.float32)
+    j[-1, :, :, 2] = 2.0
+    joints = torch.from_numpy(j).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=(n, label, label)).astype(np.float32)).to(cuda)
+    kw = dict(label_size=label, stride=stride, sigma=7.0 * stride / 8, paf_thre=float(stride))
+    before = gt_mod.KERNEL.launches
+    got = gt_mod.create_labels(joints, mask, **kw)
+    assert gt_mod.KERNEL.launches == before + 1
+    want = gt_mod.create_labels_plain(joints, mask, **kw)
+    on_cpu = gt_mod.create_labels_plain(joints.cpu(), mask.cpu(), **kw)
+    for g, w, c in zip(got, want, on_cpu):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.equal(g != 0, w != 0)
+        assert (g - w).abs().max().item() <= 1e-6
+        assert (g.cpu() - c).abs().max().item() <= 1e-5
+    assert (want[0] != 0).any() and (want[1][..., :18] > 0).any()
+    assert not got[0][-1].any() and torch.equal(got[1][-1][..., 18], mask[-1])
+    zero = gt_mod.create_labels(joints, torch.zeros_like(mask), **kw)
+    assert not zero[0].any() and not zero[1].any()
+
+
+def test_block1_kernel_refuses_a_gradient(cuda):
+    x = _rand((1, 8, 8, 3), 0.3, 9, cuda)
+    wts = [_rand((3, 3, 3, 64), 0.2, 0, cuda), _rand((64,), 0.1, 1, cuda),
+           _rand((3, 3, 64, 64), 0.05, 2, cuda), _rand((64,), 0.1, 3, cuda)]
+    wts[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        block1(x, *wts)
+    with torch.no_grad():
+        assert block1(x, *wts).shape == (1, 4, 4, 64)
+
+
+@pytest.mark.parametrize("net_dtype", ["float32", "float64"])
+def test_small_train_step_on_cuda_as_on_cpu(cuda, net_dtype):
+    """One step of the 2-stage model at boxsize 64 on the card and on the
+    CPU: the gt kernel once, block1 never; losses within 1e-4 relative.
+    With the network's arithmetic in f64 (so that no ReLU within rounding
+    of zero decides differently) the updated parameters within 1e-5."""
+    from tpupose_torch.config import AugmentConfig, ModelConfig, PoseConfig, TrainConfig
+    from tpupose_torch.data.pipeline import synthetic_batches
+    from tpupose_torch.gt.augment import batch_params
+    from tpupose_torch.models import OpenPose
+    from tpupose_torch.ops import gt as gt_mod
+    from tpupose_torch.training import create_state, make_train_step
+
+    cfg = PoseConfig(model=ModelConfig(boxsize=64, num_stages=2, compute_dtype="float32"),
+                     augment=AugmentConfig(max_persons=3),
+                     train=TrainConfig(batch_size=2, base_lr=1e-4))
+    batch = next(synthetic_batches(cfg, 96, 96, seed=4))
+    draws = batch_params(torch.Generator().manual_seed(4), cfg.augment, 2)
+    dtype = getattr(torch, net_dtype)
+    model = OpenPose(num_stages=2, dtype=dtype, head_dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    res = {}
+    before = gt_mod.KERNEL.launches, block1_mod.KERNEL.launches
+    for dev in ("cpu", "cuda"):
+        state, tx = create_state(cfg, model.state_dict(), dev)
+        tree, losses = make_train_step(cfg, model, tx)(state.tree(), draws, batch)
+        res[dev] = ({k: float(v) for k, v in losses.items()},
+                    {k: v.cpu() for k, v in tree["params"].items()})
+    assert (gt_mod.KERNEL.launches, block1_mod.KERNEL.launches) == (before[0] + 1, before[1])
+    for k, v in res["cpu"][0].items():
+        assert abs(res["cuda"][0][k] / v - 1.0) <= 1e-4, k
+    if net_dtype == "float64":
+        for k, v in res["cpu"][1].items():
+            assert (res["cuda"][1][k] - v).abs().max().item() <= 1e-5, k

@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpupose import topology
-from tpupose.config import InferenceConfig
+from tpupose_torch import topology
+from tpupose_torch.config import InferenceConfig
 from tpupose_torch.decode import assemble as _assemble
 from tpupose_torch.decode import paf as _paf
 from tpupose_torch.decode import peaks as _peaks

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from tpupose import topology
+from tpupose_torch import topology
 
 BIG_STAMP = 1 << 30
 SEED_LIMBS = 17     # the last two decode limbs never seed people

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from tpupose import topology
+from tpupose_torch import topology
 from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.ops.sample import sample_avg
 

@@ -22,13 +22,12 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 import torch
 
-from tpupose.config import DEFAULT, PoseConfig
+from tpupose_torch.config import DEFAULT, PoseConfig
 from tpupose_torch.decode.api import decode_impl_batch, to_people
 from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.models import OpenPose, weights as weights_lib
+from tpupose_torch.models.openpose import DTYPES
 from tpupose_torch.ops import image as image_ops
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class PoseEstimator:
@@ -48,7 +47,8 @@ class PoseEstimator:
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.model = OpenPose(num_stages=cfg.model.num_stages,
-                              dtype=_DTYPES[cfg.model.compute_dtype])
+                              dtype=DTYPES[cfg.model.compute_dtype],
+                              pallas_block1=True)
         if params is None:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
             self.pretrained = False
@@ -117,7 +117,7 @@ class PoseEstimator:
         people = self.process_batch(np.asarray(image, np.uint8)[None])[0]
         out = {"people": people}
         if draw:
-            from tpupose.utils.drawing import draw_people
+            from tpupose_torch.utils.drawing import draw_people
 
             out["canvas"] = draw_people(np.asarray(image, np.uint8), people)
         return out

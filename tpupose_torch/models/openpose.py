@@ -24,9 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpupose import topology
+from tpupose_torch import topology
 from tpupose_torch.ops.block1 import block1
 
+# ModelConfig.compute_dtype -> torch dtype
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # flax lecun_normal: truncated normal in [-2, 2] std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
@@ -61,9 +63,12 @@ def _hwio(conv: Conv) -> torch.Tensor:
 class VGGBackbone(nn.Module):
     """VGG19 conv1_1..conv4_2 -> stride-8, 512-channel features.
 
-    In bf16 with even H and W, block 1 (conv1_1 + relu + conv1_2 + relu +
-    pool) goes through ``ops.block1``: the CUDA kernel for CUDA input, its
-    plain version (the same two convs) for CPU input.
+    ``pallas_block1`` is the reference model's own field (default False):
+    when set, in bf16 with even H and W, block 1 (conv1_1 + relu +
+    conv1_2 + relu + pool) goes through ``ops.block1`` — the CUDA kernel
+    for CUDA input, its plain version (the same two convs) for CPU input.
+    That op is inference-only; the estimator sets the flag, the trainer
+    leaves it off and block 1 is the two convs and the pool.
     """
 
     _LAYERS = (("conv1_1", 3, 64), ("conv1_2", 64, 64), ("conv2_1", 64, 128),
@@ -71,9 +76,10 @@ class VGGBackbone(nn.Module):
                ("conv3_3", 256, 256), ("conv3_4", 256, 256), ("conv4_1", 256, 512),
                ("conv4_2", 512, 512))
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16, pallas_block1: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.pallas_block1 = pallas_block1
         for name, cin, cout in self._LAYERS:
             self.add_module(name, Conv(cin, cout, 3))
 
@@ -82,7 +88,8 @@ class VGGBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
-        if self.dtype == torch.bfloat16 and h % 2 == 0 and w % 2 == 0:
+        if (self.pallas_block1 and self.dtype == torch.bfloat16
+                and h % 2 == 0 and w % 2 == 0):
             y = block1(x.permute(0, 2, 3, 1), _hwio(self.conv1_1), self.conv1_1.bias,
                        _hwio(self.conv1_2), self.conv1_2.bias)
             x = y.permute(0, 3, 1, 2)
@@ -156,11 +163,11 @@ class OpenPose(nn.Module):
     """
 
     def __init__(self, num_stages: int = 6, dtype: torch.dtype = torch.bfloat16,
-                 head_dtype: torch.dtype = torch.float32):
+                 head_dtype: torch.dtype = torch.float32, pallas_block1: bool = False):
         super().__init__()
         self.num_stages = num_stages
         self.dtype = dtype
-        self.vgg = VGGBackbone(dtype)
+        self.vgg = VGGBackbone(dtype, pallas_block1)
         self.cpm = CPMFeature(dtype)
         paf_c, heat_c = topology.NUM_PAF_CHANNELS, topology.NUM_HEAT_CHANNELS
         self.stage1_L1 = Stage1Branch(paf_c, dtype, head_dtype)
@@ -187,3 +194,16 @@ class OpenPose(nn.Module):
             heat = getattr(self, f"stage{t}_L2")(x)
             outputs.append((paf, heat))
         return [(p.permute(0, 2, 3, 1), h.permute(0, 2, 3, 1)) for p, h in outputs]
+
+
+def param_group(path) -> str:
+    """Map a parameter path (a dotted state-dict key or its parts) to an
+    LR group: vgg | cpm | stage1 | stageT — the MultiSGD grouping."""
+    top = path.split(".")[0] if isinstance(path, str) else path[0]
+    if top == "vgg":
+        return "vgg"
+    if top == "cpm":
+        return "cpm"
+    if top.startswith("stage1"):
+        return "stage1"
+    return "stageT"

@@ -48,3 +48,73 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict[str, dict[
         else:
             raise ValueError(f"unknown state_dict entry {key}")
     return params
+
+
+# --- optimizer state ---------------------------------------------------------
+# The reference's optimizer state is an optax pytree: NamedTuples, tuples and
+# dicts in which every momentum accumulator is the ``trace`` field of a
+# TraceState — a params-shaped tree whose leaves outside that transform's
+# label are field-less ``MaskedNode`` tuples. The two functions below walk
+# such a tree by shape alone (no optax import), so a training state can be
+# carried between the packages.
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _array_leaves(tree, path=()):
+    """(path, array) for every array leaf of a nested dict; skips the
+    field-less placeholder tuples of masked-out leaves."""
+    if isinstance(tree, Mapping):
+        for key, sub in tree.items():
+            yield from _array_leaves(sub, (*path, key))
+    elif not isinstance(tree, tuple):
+        yield path, tree
+
+
+def momentum_from_optax(opt_state) -> dict[str, torch.Tensor]:
+    """Every momentum accumulator of an optax state, merged into one
+    state-dict-named mapping (``scope.layer.weight|bias``, OIHW)."""
+    found: dict[str, dict[str, dict[str, np.ndarray]]] = {}
+
+    def walk(node):
+        if _is_namedtuple(node) and "trace" in node._fields:
+            for (scope, layer, leaf), arr in _array_leaves(node.trace):
+                found.setdefault(scope, {}).setdefault(layer, {})[leaf] = np.asarray(arr)
+        if isinstance(node, Mapping):
+            for sub in node.values():
+                walk(sub)
+        elif isinstance(node, (tuple, list)):
+            for sub in node:
+                walk(sub)
+
+    walk(opt_state)
+    return from_flax(found)
+
+
+def momentum_into_optax(opt_state, trace: Mapping[str, torch.Tensor]):
+    """A copy of the optax state ``opt_state`` whose momentum accumulators
+    hold the port's ``trace`` (state-dict names); everything else, the
+    step counters included, is kept."""
+    flax = to_flax(trace)
+
+    def fill(tree, path=()):
+        if isinstance(tree, Mapping):
+            return {k: fill(v, (*path, k)) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tree
+        scope, layer, leaf = path
+        return flax[scope][layer][leaf]
+
+    def walk(node):
+        if _is_namedtuple(node):
+            fields = {f: (fill(v) if f == "trace" else walk(v))
+                      for f, v in zip(node._fields, node)}
+            return type(node)(**fields)
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(opt_state)

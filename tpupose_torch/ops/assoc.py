@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from tpupose import topology
+from tpupose_torch import topology
 from tpupose_torch.decode import assemble as _assemble
 from tpupose_torch.decode import paf as _paf
 from tpupose_torch.ops._build import CudaKernel

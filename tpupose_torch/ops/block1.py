@@ -33,6 +33,16 @@ def block1_plain(x, k1, b1, k2, b2, dtype=torch.bfloat16):
     return F.max_pool2d(y, 2).permute(0, 2, 3, 1)
 
 
+def refuse_grad(*tensors) -> None:
+    """Raise if autograd would record a call on ``tensors``: the kernel has
+    no backward, and its output would silently carry no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "block1: the CUDA kernel is inference-only (no backward); call it under "
+            "torch.no_grad()/inference_mode(), or build the model with "
+            "pallas_block1=False to train through the convs")
+
+
 def block1(x, k1, b1, k2, b2):
     """conv1_1+relu+conv1_2+relu+maxpool2x2 in bf16 with f32 accumulation.
 
@@ -40,6 +50,11 @@ def block1(x, k1, b1, k2, b2):
     k2 (3, 3, 64, 64) HWIO, biases (64,). Returns (N, H/2, W/2, 64)
     bfloat16 NHWC. CPU tensors take ``block1_plain``; CUDA tensors the
     kernel.
+
+    The kernel has no backward (nor has the kernel it replaces): on a
+    CUDA tensor, a call that would need one — grad mode on and any of the
+    five tensors requiring grad — raises instead of returning a result
+    cut off from the graph. Training runs block 1 through the convs.
     """
     n, h, w, cin = x.shape
     if cin != 3 or h % 2 or w % 2:
@@ -50,6 +65,7 @@ def block1(x, k1, b1, k2, b2):
         return block1_plain(x, k1, b1, k2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"block1: unsupported device {x.device}")
+    refuse_grad(x, k1, b1, k2, b2)
     xb = x.to(torch.bfloat16).contiguous()
     w1 = k1.to(torch.float32).contiguous()
     w2 = k2.to(torch.bfloat16).contiguous()

@@ -11,7 +11,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tpupose.config import InferenceConfig, ModelConfig
+from tpupose_torch.config import InferenceConfig, ModelConfig
 
 PAD_NORM = 128.0 / 256.0 - 0.5  # the gray pad value in normalised space (0.0)
 

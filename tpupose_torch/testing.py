@@ -1,9 +1,9 @@
 """Synthetic inputs for checking the port where no weights or data exist.
 
 ``planted_scene`` builds per-scale low-res heat/PAF maps of a known
-two-person scene from the numpy ground-truth rasteriser
-(``tpupose.reference_impl.gt_np``), resized with the port's own bilinear
-resize: decoding them must give the two people.
+two-person scene from the port's ground-truth rasteriser
+(``gt.rasterize.create_labels`` on the CPU), resized with the port's own
+bilinear resize: decoding them must give the two people.
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpupose import topology
+from tpupose_torch import topology
+from tpupose_torch.gt.rasterize import create_labels
 from tpupose_torch.ops import image
 
 # part offsets of an upright person, in units of its size
@@ -38,11 +39,11 @@ def planted_scene(sizes, seed: int = 3):
     """Two people on the 368x368 label grid, as per-scale (1, Hl, Wl, 19)
     heat and (1, Hl, Wl, 38) PAF maps for the pyramid ``sizes``
     ((rh, rw, ph, pw) per scale, as ``image.scale_sizes`` gives them)."""
-    from tpupose.reference_impl import gt_np
-
     rng = np.random.default_rng(seed)
     joints = np.stack([person(110.0 + rng.normal() * 6, 200.0), person(255.0, 185.0)])
-    labels = torch.from_numpy(gt_np.create_heatmaps_np(joints).astype(np.float32))
+    paf, heat = create_labels(torch.from_numpy(joints.astype(np.float32))[None],
+                              torch.ones((1, 46, 46)))
+    labels = torch.cat([paf[0], heat[0]], dim=-1)                  # (46, 46, 57)
     heats, pafs = [], []
     for _, _, ph, pw in sizes:
         low = image.resize_bilinear(labels, ph // 8, pw // 8)

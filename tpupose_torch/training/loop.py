@@ -1,0 +1,172 @@
+"""The training loop: steps, LR schedule, checkpoints, CSV logging.
+
+Counterpart of ``tpupose/training/loop.py`` on one device: restore-latest,
+iterate generator batches, log per-head losses, checkpoint periodically.
+Works identically for from-scratch training and frozen-VGG domain
+adaptation — the optimizer encodes the difference.
+
+Each step's augmentation draws come from a generator seeded from
+(``seed``, the step's index), so a run resumed from a checkpoint repeats
+the uninterrupted run exactly.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import time
+from typing import Any, Callable, Iterable, Mapping
+
+import numpy as np
+import torch
+
+from tpupose_torch.config import PoseConfig
+from tpupose_torch.models import OpenPose
+from tpupose_torch.models.openpose import DTYPES
+from tpupose_torch.training import checkpoint as ckpt_lib
+from tpupose_torch.training.train import create_state, make_eval_step, make_train_step
+
+
+class CSVLogger:
+    """Per-step loss CSV."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._path = path
+        self._file = None
+        self._writer = None
+
+    def log(self, step: int, losses: dict[str, float]) -> None:
+        if self._writer is None:
+            self._file = open(self._path, "a", newline="")
+            self._writer = csv.DictWriter(self._file, fieldnames=["step", *sorted(losses)])
+            if self._file.tell() == 0:
+                self._writer.writeheader()
+        self._writer.writerow({"step": step, **{k: f"{v:.6g}" for k, v in losses.items()}})
+        self._file.flush()
+
+    def close(self) -> None:
+        if self._file:
+            self._file.close()
+
+
+def step_generator(seed: int, step_idx: int) -> torch.Generator:
+    """The augmentation generator of step ``step_idx`` of a run."""
+    mixed = ((seed + 1) * 0x9E3779B97F4A7C15 + step_idx * 0xBF58476D1CE4E5B9) & ((1 << 63) - 1)
+    return torch.Generator().manual_seed(mixed)
+
+
+def _host(losses: Mapping[str, torch.Tensor]) -> dict[str, float]:
+    return {k: float(v) for k, v in losses.items()}
+
+
+def train(
+    cfg: PoseConfig,
+    batches: Iterable[dict[str, np.ndarray]],
+    params: Mapping[str, torch.Tensor] | None = None,
+    workdir: str = "runs/train",
+    max_steps: int | None = None,
+    seed: int = 0,
+    on_step: Callable[[int, dict[str, float]], None] | None = None,
+    val_batches: Callable[[], Iterable[dict[str, np.ndarray]]] | None = None,
+    val_every: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, Any]:
+    """Run the training loop on ``device``; returns the final state tree
+    and run statistics. ``params``: a state dict to start from
+    (``models.weights.from_flax`` converts a flax tree); None builds the
+    seeded default init. The latest checkpoint under ``workdir``, if any,
+    takes precedence."""
+    model = OpenPose(num_stages=cfg.model.num_stages, dtype=DTYPES[cfg.model.compute_dtype])
+    if params is None:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        params = model.state_dict()
+
+    state, tx = create_state(cfg, params, device)
+    tree = state.tree()
+
+    ckpt_dir = os.path.join(workdir, cfg.train.checkpoint_dir)
+    restored = ckpt_lib.restore(ckpt_dir, tree)
+    if restored is not None:
+        tree = restored
+
+    step_fn = make_train_step(cfg, model, tx, loss_denom=cfg.train.batch_size)
+    logger = CSVLogger(os.path.join(workdir, "training.csv"))
+
+    val_logger = None
+    eval_fns: dict[int, Any] = {}
+    if val_batches is not None:
+        val_every = val_every or cfg.train.checkpoint_every
+        val_logger = CSVLogger(os.path.join(workdir, "validation.csv"))
+
+    def run_validation(step_idx: int) -> None:
+        if val_batches is None:
+            return
+        totals: dict[str, float] = {}
+        n_total = 0
+        for vb in val_batches():
+            # the eucl-loss divisor is each val batch's own sample count
+            n_real = next(iter(vb.values())).shape[0]
+            if n_real not in eval_fns:
+                eval_fns[n_real] = make_eval_step(cfg, model, loss_denom=n_real)
+            # per-sample weighting (evaluate_generator semantics)
+            for k, v in _host(eval_fns[n_real](tree["params"], vb)).items():
+                totals[k] = totals.get(k, 0.0) + v * n_real
+            n_total += n_real
+        if n_total:
+            val_logger.log(step_idx, {k: v / n_total for k, v in totals.items()})
+
+    limit = max_steps if max_steps is not None else cfg.train.max_steps
+    # The step counter lives host-side; losses are read from the device
+    # only when they are logged, so dispatch runs ahead of the device.
+    start = int(tree["step"])
+    step_idx = start
+    last_saved = None
+    t0 = time.time()
+    losses = None  # device handle of the most recent step's losses
+
+    feed = iter(batches)
+    while step_idx < limit:
+        try:
+            batch = next(feed)
+        except StopIteration:
+            break
+        n_fed = next(iter(batch.values())).shape[0]
+        if n_fed != cfg.train.batch_size:
+            raise ValueError(
+                f"batch of {n_fed} fed to a loop configured for "
+                f"batch_size={cfg.train.batch_size} (the loss divisor is "
+                "pinned to the configured size)"
+            )
+        tree, losses = step_fn(tree, step_generator(seed, step_idx), batch)
+
+        step_idx += 1
+        if step_idx % cfg.train.log_every == 0 or step_idx == start + 1:
+            logged = _host(losses)
+            logger.log(step_idx, logged)
+            if on_step is not None:
+                on_step(step_idx, logged)
+        if step_idx % cfg.train.checkpoint_every == 0:
+            last_saved = ckpt_lib.save(ckpt_dir, tree)
+        if val_batches is not None and step_idx % val_every == 0:
+            run_validation(step_idx)
+
+    # the FINAL step's losses, whatever the logging cadence was
+    last_losses = _host(losses) if losses is not None else {}
+    if last_saved != tree["step"]:
+        ckpt_lib.save(ckpt_dir, tree)
+    if val_batches is not None:
+        run_validation(tree["step"])
+        val_logger.close()
+    logger.close()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    steps_done = tree["step"] - start
+    return {
+        "state": tree,
+        "steps": steps_done,
+        "seconds": elapsed,
+        "steps_per_sec": steps_done / elapsed if elapsed > 0 else 0.0,
+        "last_losses": last_losses,
+    }
