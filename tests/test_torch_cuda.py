@@ -7,9 +7,10 @@ imports no jax, so it also runs where only torch is installed:
 
 Tolerances: block1 within the bf16 bound of tests/test_pallas_block1.py
 (against an f32 truth); pyramid peaks the same peak mask and values
-within 1e-5; sample within 1e-5; assoc bit-equal; the decode's integer
-tables equal and floats within 1e-4; gt the same masks and values within
-1e-6; a small train step within 1e-4 (losses) of the CPU.
+within 1e-5; sample within 1e-5; assoc bit-equal; peaks bit-equal; the
+decode's integer tables equal and floats within 1e-4 (scale-space and
+full-res); gt the same masks and values within 1e-6; a small train step
+within 1e-4 (losses) of the CPU.
 """
 
 import numpy as np
@@ -147,6 +148,57 @@ def test_planted_scene_decodes_on_cuda_as_on_cpu(cuda):
         else:
             assert torch.equal(g, v), key
     assert len(to_people({k: v[0].numpy() for k, v in cpu.items()})) == 2
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 80, 19), (1, 7, 30, 18), (3, 33, 129, 21)])
+def test_peaks_kernel_bit_equal(cuda, shape):
+    """csrc/peaks.cu against peak_scores_plain, on the card and on the CPU:
+    both follow one arithmetic (tap order, separately rounded multiply and
+    add), so the blurred field and every >= of the NMS agree bit for bit.
+    Tiles cut by the map's edge, a map narrower than the blur radius, and
+    channels beyond the 18 scored ones."""
+    from tpupose_torch.decode.peaks import gaussian_blur
+    from tpupose_torch.ops import peaks as peaks_mod
+
+    noise = torch.from_numpy(
+        np.random.default_rng(shape[1]).normal(size=shape).astype(np.float32))
+    field = (gaussian_blur(noise, 4.0) * 3.0).to(cuda)
+    before = peaks_mod.KERNEL.launches
+    got = peaks_mod.peak_scores(field, 18, 3.0, 0.1)
+    assert peaks_mod.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    want = peaks_mod.peak_scores_plain(field, 18, 3.0, 0.1)
+    assert got.shape == (shape[0], 18, shape[1] * shape[2]) and got.dtype == torch.float32
+    assert int(torch.isfinite(want).sum()) >= 8
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), peaks_mod.peak_scores_plain(field.cpu(), 18, 3.0, 0.1))
+    with pytest.raises(ValueError):
+        peaks_mod.peak_scores(field, 18, sigma=9.0)       # 73 taps: more than the kernel takes
+
+
+def test_fullres_decode_on_cuda_as_on_cpu(cuda):
+    """The planted scene materialised at 368x368, through decode_maps:
+    2 people, the card's tables equal to the CPU's."""
+    from tpupose_torch.decode import decode_maps, to_people
+    from tpupose_torch.ops import peaks as peaks_mod
+    from tpupose_torch.testing import planted_scene
+
+    heats, pafs = planted_scene(SIZES)
+
+    heat = image.average_upsampled(heats, SIZES, 368, 368, 8)[0]
+    paf = image.average_upsampled(pafs, SIZES, 368, 368, 8)[0]
+    cfg = InferenceConfig()
+    cpu = decode_maps(heat, paf, cfg)
+    before = peaks_mod.KERNEL.launches
+    gpu = decode_maps(heat.to(cuda), paf.to(cuda), cfg)
+    assert peaks_mod.KERNEL.launches == before + 1
+    for key, v in cpu.items():
+        g = gpu[key].cpu()
+        if v.dtype.is_floating_point:
+            assert (g - v).abs().max().item() <= 1e-4, key
+        else:
+            assert torch.equal(g, v), key
+    assert len(to_people({k: v.numpy() for k, v in cpu.items()})) == 2
 
 
 @pytest.mark.parametrize("shape", [(10, 24, 46, 8), (3, 5, 16, 4)])

@@ -45,7 +45,9 @@ def imported_roots(path):
 
 def test_no_source_of_the_port_imports_the_reference_or_jax():
     files = port_sources()
-    assert len(files) > 25 and any(f.endswith("training/loop.py") for f in files)
+    assert len(files) > 30 and any(f.endswith("training/loop.py") for f in files)
+    assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py"} <= {
+        os.path.basename(f) for f in files}
     bad = {os.path.relpath(f, ROOT): sorted(imported_roots(f) & FORBIDDEN) for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
 
@@ -56,6 +58,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import tpupose_torch, tpupose_torch.infer, tpupose_torch.testing\n"
         "import tpupose_torch.training.loop, tpupose_torch.data.pipeline\n"
         "import tpupose_torch.gt, tpupose_torch.ops, tpupose_torch.utils.drawing\n"
+        "import tpupose_torch.buckets, tpupose_torch.tracking, tpupose_torch.reference_impl\n"
+        "from tpupose_torch.decode import decode_maps, decode_maps_batch, to_people\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print('LOADED', bad)\n"
     )

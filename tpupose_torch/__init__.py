@@ -2,11 +2,12 @@
 
 A second package beside the JAX reference ``tpupose``, mirroring its
 layout (``models/``, ``ops/``, ``decode/``, ``gt/``, ``training/``,
-``data/``, ``infer.py``) module for module. Public functions keep the reference's layouts — NHWC maps,
+``data/``, ``reference_impl/``, ``infer.py``, ``buckets.py``,
+``tracking.py``) module for module. Public functions keep the reference's layouts — NHWC maps,
 (C, H*W) score maps, the same table dicts — so each one can be held
 against its JAX counterpart on the same inputs.
 
-Every Pallas kernel on the inference and training paths has a
+Every Pallas kernel of the reference (six) has a
 hand-written CUDA counterpart under ``csrc/``, built with nvcc for sm_90a at first use
 (``ops/_build.py``). Each kernel's wrapper runs its plain PyTorch version
 for CPU tensors and launches the kernel for CUDA tensors.

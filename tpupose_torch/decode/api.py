@@ -1,12 +1,18 @@
-"""Decode composition: per-scale low-res maps -> people tables -> JSON.
+"""Decode composition: averaged maps -> people tables -> JSON.
 
-Counterpart of ``tpupose/decode/api.py`` (``decode_impl_batch`` on the
-scale-space path, and ``to_people``). One full-capacity path: peaks at
-``max_peaks`` slots, pair scores on the full K x K grid, greedy accept
-over the top min(512, K^2) candidates, assembly into
-max(max_people, scan_people_capacity) partial people. The reference's
-adaptive tiers and decode groups are bit-identical to this path by
-construction, so their config fields change nothing here.
+Counterpart of ``tpupose/decode/api.py`` (``decode_impl``,
+``decode_impl_batch``, ``decode_maps[_batch]`` and ``to_people``). The
+heat and PAF inputs are each either a materialised full-res map or a
+``ScaleSpace`` of per-scale low-res network outputs, and may be mixed:
+a full-res heat map goes through ``ops.peaks`` and a full-res PAF is
+indexed at the sample points; a ``ScaleSpace`` goes through
+``ops.pyramid_peaks`` and ``ops.sample`` and is never upsampled.
+
+One full-capacity path: peaks at ``max_peaks`` slots, pair scores on the
+full K x K grid, greedy accept over the top min(512, K^2) candidates,
+assembly into max(max_people, scan_people_capacity) partial people. The
+reference's adaptive tiers and decode groups are bit-identical to this
+path by construction, so their config fields change nothing here.
 """
 
 from __future__ import annotations
@@ -20,14 +26,18 @@ from tpupose_torch.decode import assemble as _assemble
 from tpupose_torch.decode import paf as _paf
 from tpupose_torch.decode import peaks as _peaks
 from tpupose_torch.decode.scalespace import ScaleSpace
-from tpupose_torch.ops.assoc import assoc
-from tpupose_torch.ops.pyramid_peaks import pyramid_peak_scores
+# the kernel modules, not their functions: ``ops.assoc`` imports this
+# package's ``assemble`` and ``paf``, so either may be half-imported here
+from tpupose_torch.ops import assoc as _assoc_op
+from tpupose_torch.ops import peaks as _peaks_op
+from tpupose_torch.ops import pyramid_peaks as _pyramid_op
 
 
-def decode_impl_batch(heatmaps: ScaleSpace, pafs: ScaleSpace, cfg: InferenceConfig,
+def decode_impl_batch(heatmaps, pafs, cfg: InferenceConfig,
                       valid_hw=None) -> dict[str, torch.Tensor]:
-    """Batched decode of per-scale (B, Hl, Wl, 19) heat and (B, Hl, Wl,
-    38) PAF maps.
+    """Batched decode. ``heatmaps``: (B, H, W, 19) or a ScaleSpace of
+    (B, Hl, Wl, 19) maps; ``pafs``: (B, H, W, 38) or a ScaleSpace of
+    (B, Hl, Wl, 38) maps.
 
     ``valid_hw`` (optional (B, 2) int) restricts peaks to each image's
     top-left rectangle [0, vh) x [0, vw). Returns rows (B, max_people,
@@ -35,9 +45,14 @@ def decode_impl_batch(heatmaps: ScaleSpace, pafs: ScaleSpace, cfg: InferenceConf
     valid per person, and the peak tables peak_xs/peak_ys/peak_scores
     (B, 18, max_peaks) that resolve the ids.
     """
-    flats = pyramid_peak_scores(heatmaps, topology.NUM_PARTS, cfg.peak_sigma, cfg.thre1)
+    if isinstance(heatmaps, ScaleSpace):
+        flats = _pyramid_op.pyramid_peak_scores(heatmaps, topology.NUM_PARTS, cfg.peak_sigma,
+                                                cfg.thre1)
+        w = heatmaps.out_hw[1]
+    else:
+        flats = _peaks_op.peak_scores(heatmaps, topology.NUM_PARTS, cfg.peak_sigma, cfg.thre1)
+        w = heatmaps.shape[2]
     b, c, n = flats.shape
-    w = heatmaps.out_hw[1]
     if valid_hw is not None:
         vhw = torch.as_tensor(valid_hw, dtype=torch.int64).to(flats.device)
         lin = torch.arange(n, device=flats.device)
@@ -50,9 +65,9 @@ def decode_impl_batch(heatmaps: ScaleSpace, pafs: ScaleSpace, cfg: InferenceConf
     prior, ok, n_a, n_b = _paf.pair_scores(
         pafs, peaks, mid_num=cfg.mid_num, thre2=cfg.thre2, min_ratio=cfg.connect_min_ratio)
     ts, ta, tb, sa, sb = _paf.candidates(prior, ok, peaks["scores"], min(512, k * k))
-    raw = assoc(ts, ta, tb, sa, sb, torch.minimum(n_a, n_b), k_slots=k,
-                n_conn=min(cfg.max_connections, k),
-                max_people=max(cfg.max_people, cfg.scan_people_capacity))
+    raw = _assoc_op.assoc(ts, ta, tb, sa, sb, torch.minimum(n_a, n_b), k_slots=k,
+                          n_conn=min(cfg.max_connections, k),
+                          max_people=max(cfg.max_people, cfg.scan_people_capacity))
     people = _assemble.cull_and_compact(
         raw["rows"], raw["score"], raw["cnt"], raw["active"], raw["stamp"],
         cfg.min_subset_cnt, cfg.min_subset_score)
@@ -62,6 +77,22 @@ def decode_impl_batch(heatmaps: ScaleSpace, pafs: ScaleSpace, cfg: InferenceConf
         "peak_ys": peaks["ys"],
         "peak_scores": peaks["scores"],
     }
+
+
+def decode_impl(heatmap, paf, cfg: InferenceConfig) -> dict[str, torch.Tensor]:
+    """One image's decode: (H, W, 19) / (H, W, 38) maps, or ScaleSpaces of
+    (Hl, Wl, C) maps, or one of each -> the tables of
+    ``decode_impl_batch`` without the batch axis."""
+    def batched(m):
+        return m.map_scales(lambda t: t[None]) if isinstance(m, ScaleSpace) else m[None]
+
+    out = decode_impl_batch(batched(heatmap), batched(paf), cfg)
+    return {key: v[0] for key, v in out.items()}
+
+
+# the reference's public names (jitted there; eager here)
+decode_maps = decode_impl
+decode_maps_batch = decode_impl_batch
 
 
 def to_people(result: dict[str, np.ndarray]) -> list[dict]:

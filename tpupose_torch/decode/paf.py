@@ -1,12 +1,14 @@
 """PAF line-integral limb scoring + greedy connection accept.
 
-Counterpart of ``tpupose/decode/paf.py`` on the scale-space path: every
-candidate (A, B) peak pair of every limb is scored by sampling the
-limb's PAF channel pair at ``mid_num`` rounded, clipped points along the
-segment (``ops.sample``), dotted with the unit direction; a pair passes
-if more than ``min_ratio`` of the samples exceed ``thre2`` and the
-distance-priored mean is positive. All images and limbs go through one
-batched call.
+Counterpart of ``tpupose/decode/paf.py``: every candidate (A, B) peak
+pair of every limb is scored by sampling the limb's PAF channel pair at
+``mid_num`` rounded, clipped points along the segment, dotted with the
+unit direction; a pair passes if more than ``min_ratio`` of the samples
+exceed ``thre2`` and the distance-priored mean is positive. All images
+and limbs go through one batched call. The two readouts differ only in
+where a point's value comes from: a ``ScaleSpace`` of low-res maps is
+evaluated at the points (``ops.sample``), a materialised full-res map is
+indexed there (``paf[iy, ix]``).
 """
 
 from __future__ import annotations
@@ -18,17 +20,31 @@ from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.ops.sample import sample_avg
 
 
-def pair_scores(paf: ScaleSpace, peaks: dict[str, torch.Tensor], mid_num: int = 10,
+def sample_fullres(paf: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                   chans) -> torch.Tensor:
+    """``paf[b, iy, ix, chans[l]]``: (B, H, W, C) map, int (B, L, *S)
+    points, (L, 2) channel pairs -> (B, L, *S, 2) f32."""
+    b, n_limbs = iy.shape[:2]
+    lead = (1,) * (iy.dim() - 2)
+    bi = torch.arange(b, device=paf.device).view(b, 1, *lead, 1)
+    ch = torch.as_tensor(chans, dtype=torch.int64, device=paf.device).view(1, n_limbs, *lead, 2)
+    return paf[bi, iy[..., None].to(torch.int64), ix[..., None].to(torch.int64), ch].to(
+        torch.float32)
+
+
+def pair_scores(paf, peaks: dict[str, torch.Tensor], mid_num: int = 10,
                 thre2: float = 0.05, min_ratio: float = 0.8):
     """All-limb pair tables of a batch.
 
-    paf: ScaleSpace of per-scale (B, Hl, Wl, 38) maps; peaks: (B, 18, K)
-    tables. Returns (prior (B, 19, K, K) f32, ok (B, 19, K, K) bool,
-    n_a (B, 19), n_b (B, 19)) in decode limb order.
+    paf: a materialised (B, H, W, 38) map, or a ScaleSpace of per-scale
+    (B, Hl, Wl, 38) maps; peaks: (B, 18, K) tables. Returns (prior (B, 19,
+    K, K) f32, ok (B, 19, K, K) bool, n_a (B, 19), n_b (B, 19)) in decode
+    limb order.
     """
     part_pairs, paf_chans = topology.decode_limb_tables()
     pairs = torch.as_tensor(part_pairs, dtype=torch.int64, device=peaks["xs"].device)
-    out_h, out_w = paf.out_hw
+    scale_space = isinstance(paf, ScaleSpace)
+    out_h, out_w = paf.out_hw if scale_space else paf.shape[1:3]
     height = float(out_h)
     ax, ay, av = (peaks[k][:, pairs[:, 0]] for k in ("xs", "ys", "valid"))   # (B, 19, K)
     bx, by, bv = (peaks[k][:, pairs[:, 1]] for k in ("xs", "ys", "valid"))
@@ -46,7 +62,8 @@ def pair_scores(paf: ScaleSpace, peaks: dict[str, torch.Tensor], mid_num: int = 
     mx = axf[..., :, None, None] + dx[..., None] * t
     iy = torch.clamp(torch.round(my).to(torch.int32), 0, out_h - 1)
     ix = torch.clamp(torch.round(mx).to(torch.int32), 0, out_w - 1)
-    sampled = sample_avg(paf, iy, ix, paf_chans)       # (B, 19, K, K, M, 2)
+    sample = sample_avg if scale_space else sample_fullres
+    sampled = sample(paf, iy, ix, paf_chans)           # (B, 19, K, K, M, 2)
     score_mid = sampled[..., 0] * ux[..., None] + sampled[..., 1] * uy[..., None]
 
     mean = score_mid.mean(dim=-1)

@@ -1,20 +1,26 @@
-"""Peak NMS masks and fixed-capacity peak tables.
+"""Gaussian blur, peak NMS masks and fixed-capacity peak tables.
 
-Counterpart of ``tpupose/decode/peaks.py`` (``masked_scores`` and the
-table building of ``peak_tables_tiered``). One full-capacity path: the
-reference's compaction tiers are bit-identical to it by construction.
+Counterpart of ``tpupose/decode/peaks.py``: ``gaussian_blur`` and
+``find_peaks`` on a materialised map (the oracle of the fused kernel
+``ops/peaks.py``), ``masked_scores``, and the table building. One
+full-capacity path: the reference's compaction tiers are bit-identical
+to it by construction.
 
 Slots hold peaks in row-major scan order (the reference's ``np.nonzero``
-order). When ANY row of the whole call holds more than ``max_peaks``
-peaks, every row switches to score-descending order (the reference's
-overflow guard), with ties — including the ``-inf`` filler — lowest index
-first, as ``lax.top_k`` orders them.
+order). ``scan_tables`` keeps the first ``max_peaks`` of a row that holds
+more (the reference's ``peak_tables``); ``peak_tables`` is the decode's
+guarded form (the reference's ``peak_tables_tiered``): when ANY row of
+the whole call holds more than ``max_peaks`` peaks, every row switches to
+score-descending order, with ties — including the ``-inf`` filler —
+lowest index first, as ``lax.top_k`` orders them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpupose_torch import topology
 
 
 def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
@@ -23,6 +29,38 @@ def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     x = np.arange(-radius, radius + 1, dtype=np.float64)
     k = np.exp(-0.5 * (x / sigma) ** 2)
     return (k / k.sum()).astype(np.float32)
+
+
+def symmetric_index(n: int, r: int, device=None) -> torch.Tensor:
+    """Source indices of an axis of length ``n`` padded by ``r`` on both
+    sides with the edge sample repeated (``jnp.pad(mode="symmetric")``,
+    scipy ``reflect``: d c b a | a b c d | d c b a). Folds as often as a
+    map narrower than ``r`` needs."""
+    j = torch.arange(-r, n + r, device=device) % (2 * n)
+    return torch.where(j < n, j, 2 * n - 1 - j)
+
+
+def tap_pass(x: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
+    """Valid correlation of ``x`` with ``taps`` along ``dim``, accumulated
+    in tap order 0..T-1 with a separately rounded multiply and add per
+    tap (no fused multiply-add on any device)."""
+    n = x.shape[dim] - len(taps) + 1
+    acc = float(taps[0]) * x.narrow(dim, 0, n)
+    for k in range(1, len(taps)):
+        acc = acc + float(taps[k]) * x.narrow(dim, k, n)
+    return acc
+
+
+def gaussian_blur(maps: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable gaussian over (..., H, W, C) with scipy 'reflect' borders,
+    vertical pass first, as the reference's oracle convolves."""
+    taps = gaussian_kernel1d(sigma)
+    r = (len(taps) - 1) // 2
+    h, w = maps.shape[-3], maps.shape[-2]
+    x = maps.to(torch.float32)
+    x = x.index_select(-3, symmetric_index(h, r, x.device))
+    x = x.index_select(-2, symmetric_index(w, r, x.device))
+    return tap_pass(tap_pass(x, taps, -3), taps, -2)
 
 
 def masked_scores(parts: torch.Tensor, smooth: torch.Tensor, thre1: float) -> torch.Tensor:
@@ -50,11 +88,8 @@ def peak_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.T
     Returns xs/ys int32, scores f32 (0 in empty slots) and valid bool.
     The overflow decision is global over the R rows (one host sync).
     """
-    r, n = flat.shape
     k = max_peaks
-    valid = torch.isfinite(flat)
-    count = valid.sum(dim=-1)
-    if bool((count > k).any()):
+    if bool((torch.isfinite(flat).sum(dim=-1) > k).any()):
         top, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
         top, idx = top[:, :k], idx[:, :k]
         ok = torch.isfinite(top)
@@ -64,11 +99,22 @@ def peak_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.T
             "scores": torch.where(ok, top, torch.zeros_like(top)),
             "valid": ok,
         }
-    # scan order: the i-th peak of a row goes to slot i; the rest of the
-    # row's pixels scatter into one discarded trailing slot
+    return scan_tables(flat, w, k)
+
+
+def scan_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.Tensor]:
+    """``peak_tables`` in scan order whatever the counts: a row holding
+    more than ``max_peaks`` peaks keeps its first ``max_peaks``."""
+    r, n = flat.shape
+    k = max_peaks
+    valid = torch.isfinite(flat)
+    count = valid.sum(dim=-1)
+    # the i-th peak of a row goes to slot i; the rest of the row's pixels
+    # (and its peaks beyond the capacity) scatter into one discarded
+    # trailing slot
     slot = torch.cumsum(valid, dim=-1) - 1
     rows = torch.arange(r, device=flat.device)[:, None]
-    target = torch.where(valid, rows * k + slot, r * k).reshape(-1)
+    target = torch.where(valid & (slot < k), rows * k + slot, r * k).reshape(-1)
     lin = torch.arange(n, device=flat.device).expand(r, n).reshape(-1)
     pos = torch.zeros(r * k + 1, dtype=torch.int64, device=flat.device)
     pos.scatter_(0, target, lin)
@@ -82,3 +128,19 @@ def peak_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.T
         "scores": torch.where(ok, sc[:-1].reshape(r, k), 0.0),
         "valid": ok,
     }
+
+
+def nms_tables(parts: torch.Tensor, smooth: torch.Tensor, max_peaks: int,
+               thre1: float) -> dict[str, torch.Tensor]:
+    """4-neighbour local-max NMS + threshold of one (H, W, C) map ->
+    scan-order (C, K) tables."""
+    return scan_tables(masked_scores(parts, smooth, thre1), parts.shape[1], max_peaks)
+
+
+def find_peaks(heatmap: torch.Tensor, max_peaks: int = 96, sigma: float = 3.0,
+               thre1: float = 0.1) -> dict[str, torch.Tensor]:
+    """(H, W, 19) averaged heatmap -> (18, K) peak tables: xs/ys int32,
+    scores f32 (the unsmoothed map's values), valid bool, in row-major
+    scan order."""
+    parts = heatmap[:, :, : topology.NUM_PARTS].to(torch.float32)
+    return nms_tables(parts, gaussian_blur(parts, sigma), max_peaks, thre1)

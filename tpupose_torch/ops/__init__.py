@@ -6,10 +6,13 @@ plain version, a CUDA tensor the kernel (built at first use). There is
 no switch that forces either on CUDA.
 """
 
-from tpupose_torch.ops import assoc, block1, gt, image, pyramid_peaks, sample  # noqa: F401
+from tpupose_torch.ops import (  # noqa: F401
+    assoc, block1, gt, image, peaks, pyramid_peaks, sample,
+)
 from tpupose_torch.ops._build import build_all as _build_all
 
-KERNELS = (block1.KERNEL, pyramid_peaks.KERNEL, sample.KERNEL, assoc.KERNEL, gt.KERNEL)
+KERNELS = (block1.KERNEL, pyramid_peaks.KERNEL, sample.KERNEL, assoc.KERNEL, gt.KERNEL,
+           peaks.KERNEL)
 
 
 def build_kernels() -> None:

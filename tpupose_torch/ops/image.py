@@ -1,4 +1,4 @@
-"""Image ops: normalise, resize, pad, pyramid geometry.
+"""Image ops: normalise, resize, pad, pyramid geometry, map upsample.
 
 Counterpart of ``tpupose/ops/image.py``. Tensors are NHWC (or HWC), as
 in the reference.
@@ -57,6 +57,45 @@ def scale_sizes(h: int, w: int, scales, boxsize: int, stride: int):
         rw = max(int(round(w * f)), 1)
         out.append((rh, rw, math.ceil(rh / stride) * stride, math.ceil(rw / stride) * stride))
     return out
+
+
+def preprocess_scale(img_norm: torch.Tensor, rh: int, rw: int, stride: int,
+                     pad_norm: float) -> torch.Tensor:
+    """Resize a normalised (H, W, 3) image to (rh, rw) and pad to stride
+    multiples; returns (1, ph, pw, 3)."""
+    x, _ = pad_right_down(resize_bilinear(img_norm, rh, rw), stride, pad_norm)
+    return x[None]
+
+
+def upsample_to(maps: torch.Tensor, rh: int, rw: int, out_h: int, out_w: int,
+                stride: int = 8) -> torch.Tensor:
+    """Stride-N network output (1, ph/stride, pw/stride, C) -> (out_h,
+    out_w, C): bilinear x ``stride`` to the padded size, crop the pad back
+    to (rh, rw), bilinear to the image size."""
+    return upsample_to_batch(maps, rh, rw, out_h, out_w, stride)[0]
+
+
+def upsample_to_batch(maps: torch.Tensor, rh: int, rw: int, out_h: int, out_w: int,
+                      stride: int = 8) -> torch.Tensor:
+    """``upsample_to`` over a kept batch axis: (B, ph/stride, pw/stride,
+    C) -> (B, out_h, out_w, C)."""
+    ph, pw = maps.shape[1], maps.shape[2]
+    full = resize_bilinear(maps, ph * stride, pw * stride)
+    return resize_bilinear(full[:, :rh, :rw, :], out_h, out_w)
+
+
+def average_upsampled(maps, sizes, out_h: int, out_w: int, stride: int = 8) -> torch.Tensor:
+    """Per-scale low-res maps (each (B, ph/stride, pw/stride, C), with its
+    ``scale_sizes`` entry) -> their (B, out_h, out_w, C) f32 average at the
+    image size: ``upsample_to_batch`` of each scale divided by the number
+    of scales, summed in scale order. The divisor is a tensor, so the
+    quotient is a true division on every device."""
+    ns = torch.tensor(float(len(sizes)), device=maps[0].device)
+    avg = None
+    for m, (rh, rw, _, _) in zip(maps, sizes):
+        up = upsample_to_batch(m.to(torch.float32), rh, rw, out_h, out_w, stride) / ns
+        avg = up if avg is None else avg + up
+    return avg
 
 
 def pyramid_sizes(cfg: InferenceConfig, model: ModelConfig, h: int, w: int):

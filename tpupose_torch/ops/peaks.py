@@ -1,0 +1,114 @@
+"""Peak scores of materialised heatmaps: blur + NMS + threshold, fused.
+
+Counterpart of ``tpupose/ops/pallas_peaks.py``. ``peak_scores`` launches
+``csrc/peaks.cu`` for CUDA tensors and runs ``peak_scores_plain`` for CPU
+tensors. The plain version fixes the arithmetic the kernel follows:
+horizontal pass, then vertical pass, taps in index order, each tap a
+separately rounded multiply and add — so the two agree bit for bit on
+one device, and the ``>=`` of the NMS falls the same way in both.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpupose_torch import topology
+from tpupose_torch.decode.peaks import (
+    gaussian_kernel1d, scan_tables, symmetric_index, tap_pass,
+)
+from tpupose_torch.ops._build import CudaKernel
+
+_MAX_TAPS = 64
+_SMEM_LIMIT = 227 * 1024
+_TILE, _GROUP = 32, 6          # csrc/peaks.cu: kTileH = kTileW, kGroup
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [
+        ("batch", ctypes.c_int), ("h", ctypes.c_int), ("w", ctypes.c_int),
+        ("cstride", ctypes.c_int), ("parts", ctypes.c_int), ("radius", ctypes.c_int),
+        ("thre1", ctypes.c_float), ("taps", ctypes.c_float * _MAX_TAPS),
+        ("maps", ctypes.c_void_p), ("out", ctypes.c_void_p),
+    ]
+
+
+KERNEL = CudaKernel(
+    "peaks", "tp_peaks", [ctypes.POINTER(_Params), ctypes.c_void_p],
+    replaces="tpupose/ops/pallas_peaks.py:73",
+)
+
+
+def _smem_bytes(radius: int) -> int:
+    side = _TILE + 2 + 2 * radius
+    return 4 * (_GROUP * side * side + side * (_TILE + 2) + (_TILE + 2) ** 2)
+
+
+def peak_scores_plain(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
+                      thre1: float = 0.1) -> torch.Tensor:
+    """``peak_scores`` in plain PyTorch ops, in the kernel's arithmetic."""
+    taps = gaussian_kernel1d(sigma)
+    r = (len(taps) - 1) // 2
+    b, h, w = maps.shape[:3]
+    x = maps[..., :parts].to(torch.float32).permute(0, 3, 1, 2)          # (B, C, H, W)
+    xp = x.index_select(2, symmetric_index(h, r, x.device))
+    xp = xp.index_select(3, symmetric_index(w, r, x.device))
+    smooth = tap_pass(tap_pass(xp, taps, 3), taps, 2)                     # (B, C, H, W)
+    pad = torch.nn.functional.pad(smooth, (1, 1, 1, 1))                   # zero border
+    is_peak = (
+        (smooth >= pad[..., :-2, 1:-1])
+        & (smooth >= pad[..., 2:, 1:-1])
+        & (smooth >= pad[..., 1:-1, :-2])
+        & (smooth >= pad[..., 1:-1, 2:])
+        & (smooth > torch.tensor(thre1, dtype=torch.float32, device=x.device))
+    )
+    scores = torch.where(is_peak, x, torch.full_like(x, -torch.inf))
+    return scores.reshape(b, parts, h * w)
+
+
+def peak_scores(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
+                thre1: float = 0.1) -> torch.Tensor:
+    """Materialised heatmaps -> (B, parts, H*W) masked peak scores.
+
+    maps: (B, H, W, C) with C >= ``parts`` (further channels are
+    ignored). Per channel: smooth = the map's sigma-blur (separable,
+    borders repeat the edge sample); peaks are smooth >= its 4 neighbours
+    (zero outside) and smooth > thre1. The output holds the unblurred map
+    at peaks and -inf elsewhere. CPU tensors take ``peak_scores_plain``;
+    CUDA tensors the kernel.
+    """
+    if maps.dim() != 4 or maps.shape[-1] < parts or parts < 1:
+        raise ValueError(f"peak_scores: maps {tuple(maps.shape)}, want (B, H, W, C >= {parts})")
+    dev = maps.device
+    if dev.type == "cpu":
+        return peak_scores_plain(maps, parts, sigma, thre1)
+    if dev.type != "cuda":
+        raise ValueError(f"peak_scores: unsupported device {dev}")
+    taps = gaussian_kernel1d(sigma)
+    r = (len(taps) - 1) // 2
+    if len(taps) > _MAX_TAPS or _smem_bytes(r) > _SMEM_LIMIT:
+        raise ValueError(f"peak_scores: sigma {sigma} needs {len(taps)} taps, more than "
+                         "the kernel's shared memory holds")
+    b, h, w, c = maps.shape
+    if b > 65535 or -(-h // _TILE) > 65535:
+        raise ValueError(f"peak_scores: maps {tuple(maps.shape)} exceed the kernel's grid")
+    x = maps.detach().to(torch.float32).contiguous()
+    out = torch.empty((b, parts, h * w), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    p = _Params()
+    p.batch, p.h, p.w, p.cstride, p.parts, p.radius = b, h, w, c, parts, r
+    p.thre1 = thre1
+    p.taps[: len(taps)] = [float(t) for t in taps]
+    p.maps, p.out = x.data_ptr(), out.data_ptr()
+    KERNEL.launch(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def find_peaks_kernel(heatmap: torch.Tensor, max_peaks: int = 96, sigma: float = 3.0,
+                      thre1: float = 0.1) -> dict[str, torch.Tensor]:
+    """Drop-in for ``decode.peaks.find_peaks`` backed by ``peak_scores``:
+    (H, W, 19) averaged heatmap -> scan-order (18, K) tables."""
+    flat = peak_scores(heatmap[None], topology.NUM_PARTS, sigma, thre1)[0]
+    return scan_tables(flat, heatmap.shape[1], max_peaks)
