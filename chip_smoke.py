@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpupose_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With ``--parent DIR`` (a checkout of an earlier commit of this repository)
+the two redesigned kernels of that checkout, block1 and sample, are timed
+beside this checkout's on the same inputs, in turns (parent, change,
+change, parent; the parent's in a process of its own), and their times
+enter the kernels' record as ``prev_ms``.
 
 Phases, one printed line each (a phase that fails raises, and the script
 exits non-zero):
@@ -48,7 +54,9 @@ exits non-zero):
      coordinates, what process_batch gives for each canvas alone;
   e. timings: images/s (4 scales, batch 8; scale 1.0, batch 16), batch-1
      latency, a network/decode split, per-kernel ms against the plain
-     version; the full-res path beside the scale-space one (images/s in
+     version; sample at the main path's own point tables (the points
+     pair_scores builds from the seeded network's peaks, nearly all of them
+     empty slots that coincide) beside its time on random points; the full-res path beside the scale-space one (images/s in
      turns, upsample + average and full-res decode device ms, the decode
      by part, maps() ms, peak memory); train steps/s at batch 10, taken
      after both estimators are released and the allocator's cache is
@@ -151,7 +159,56 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def main() -> int:
+def _redesigned_times(torch, np, data_path: str) -> dict:
+    """Device ms of block1 (each pyramid geometry at batch 8, fed as phase b
+    feeds it) and of sample (seeded random points on seeded maps; the maps
+    and point tables saved under ``data_path``), of whichever tpupose_torch
+    is first on the path. Inputs depend on nothing but the seeds."""
+    from tpupose_torch import topology
+    from tpupose_torch.decode.scalespace import ScaleSpace
+    from tpupose_torch.ops import block1 as block1_mod
+    from tpupose_torch.ops import image
+    from tpupose_torch.ops import sample as sample_mod
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    sizes = image.scale_sizes(368, 368, (0.5, 1.0, 1.5, 2.0), 368, 8)
+    geoms = [s[:2] for s in sizes]
+
+    def rand(shape, scale):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    wts = (rand((3, 3, 3, 64), 0.2), rand((64,), 0.1), rand((3, 3, 64, 64), 0.05),
+           rand((64,), 0.1))
+    out = {"block1": []}
+    for _, _, ph, pw in sizes:
+        x = torch.from_numpy(rng.uniform(-0.5, 0.5, (8, ph, pw, 3)).astype(np.float32)).to(dev)
+        out["block1"].append(_ms(torch, lambda: block1_mod.block1(x, *wts), 5))
+    chans = torch.as_tensor(topology.decode_limb_tables()[1])
+    maps = [rand((8, ph // 8, pw // 8, 38), 0.3) for _, _, ph, pw in sizes]
+    space = ScaleSpace(maps, geoms, (368, 368))
+    iy = torch.from_numpy(rng.integers(0, 368, (8, 19, 96, 96, 10)).astype(np.int32)).to(dev)
+    ix = torch.from_numpy(rng.integers(0, 368, (8, 19, 96, 96, 10)).astype(np.int32)).to(dev)
+    out["sample_random"] = _ms(torch, lambda: sample_mod.sample_avg(space, iy, ix, chans), 3)
+    data = torch.load(data_path)
+    space = ScaleSpace([m.to(dev) for m in data["maps"]], geoms, (368, 368))
+    iy, ix = data["iy"].to(dev), data["ix"].to(dev)
+    out["sample_main_path"] = _ms(torch, lambda: sample_mod.sample_avg(space, iy, ix, chans), 3)
+    return out
+
+
+def _parent_times(parent: str, data_path: str) -> dict:
+    """``_redesigned_times`` of the checkout under ``parent``, in a process
+    of its own (two versions of one package do not share a process)."""
+    done = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel-times-of",
+                           os.path.abspath(parent), data_path],
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise RuntimeError(f"timing the kernels of {parent} failed:\n{done.stderr[-2000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def main(parent: str | None = None) -> int:
     import dataclasses
     import gc
     import tempfile
@@ -294,11 +351,13 @@ def main() -> int:
         raise AssertionError(f"sample: max err {err}")
     k_ms, p_ms = _alternate(torch, lambda: sample_mod.sample_avg_plain(paf_space, iy, ix, chans),
                             lambda: sample_mod.sample_avg(paf_space, iy, ix, chans), 3)
-    # per point and scale: 2 axes x ~30 operations for the taps, then
-    # 2 channels x (16 + 4) multiply-adds
+    # per point and scale 2 channels x (16 + 4) multiply-adds; a tap set
+    # depends only on (scale, axis, coordinate), ~30 operations for each
+    n_sc = len(paf_space.maps)
     record["sample"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                         **_bound(_nbytes(*paf_space.maps, iy, ix, got),
-                                 iy.numel() * len(paf_space.maps) * (60 + 2 * 20 * 2), F32_FLOPS),
+                                 iy.numel() * n_sc * 2 * 20 * 2 + n_sc * (368 + 368) * 30,
+                                 F32_FLOPS),
                         "library_ms": None}
     _say("b", f"sample {tuple(shape)} points x 4 scales: max err {err:.3e} (<= 1e-5): pass; "
               f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms ({card})")
@@ -586,6 +645,52 @@ def main() -> int:
     _say("e", "device ms per 4-scale batch of 8: network "
               + " + ".join(f"{t:.2f}" for t in net_ms)
               + f" (184/368/552/736) = {sum(net_ms):.2f}, decode {dec_ms:.2f} ({card})")
+
+    # sample at the main path's own tables: the points pair_scores builds from
+    # the peaks of the seeded network's maps
+    with torch.inference_mode():
+        flats = pp_mod.pyramid_peak_scores(hs, 18, icfg.peak_sigma, icfg.thre1)
+        pk = {key: v.reshape(8, 18, k) for key, v in
+              peaks_mod.peak_tables(flats.reshape(8 * 18, -1), 368, k).items()}
+        iy_main, ix_main = paf_mod.limb_points(pk, (368, 368), icfg.mid_num)[:2]
+        n_live = int(pk["valid"].sum())
+        got = sample_mod.sample_avg(ps, iy_main, ix_main, chans)
+        err = (got - sample_mod.sample_avg_plain(ps, iy_main, ix_main, chans)).abs().max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"sample at the main path's tables: max err {err}")
+        main_ms = (_ms(torch, lambda: sample_mod.sample_avg(ps, iy_main, ix_main, chans), 3)
+                   + _ms(torch, lambda: sample_mod.sample_avg(ps, iy_main, ix_main, chans), 3)) / 2
+    record["sample"]["main_path_ms"] = main_ms
+    _say("e", f"sample, device ms at {tuple(iy_main.shape)} points: the main path's own tables "
+              f"({n_live} live peaks of {8 * 18 * k} slots, the rest coincide) {main_ms:.3f} "
+              f"(max err {err:.1e} <= 1e-5), random points {record['sample']['ms']:.3f} ({card})")
+    for name in ("block1", "sample"):
+        record[name]["prev_ms"] = None
+    if parent is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            data_path = os.path.join(tmp, "main_path_points.pt")
+            torch.save({"maps": [m.float().cpu() for m in ps.maps], "iy": iy_main.cpu(),
+                        "ix": ix_main.cpu()}, data_path)
+            turns = [_parent_times(parent, data_path), _redesigned_times(torch, np, data_path),
+                     _redesigned_times(torch, np, data_path), _parent_times(parent, data_path)]
+        was = {key: np.mean([turns[0][key], turns[3][key]], axis=0) for key in turns[0]}
+        now = {key: np.mean([turns[1][key], turns[2][key]], axis=0) for key in turns[0]}
+        record["block1"]["prev_ms"] = float(was["block1"].sum())
+        record["sample"]["prev_ms"] = float(was["sample_random"])
+        record["sample"]["prev_main_path_ms"] = float(was["sample_main_path"])
+        _say("e", "the redesigned kernels beside the parent's, in turns (parent, change, change, "
+                  "parent), device ms, parent -> change: block1 per geometry "
+                  + ", ".join(f"{a:.3f} -> {b:.3f}" for a, b in zip(was["block1"], now["block1"]))
+                  + f" (184/368/552/736), sum {was['block1'].sum():.3f} -> "
+                  f"{now['block1'].sum():.3f}; sample on random points "
+                  f"{was['sample_random']:.3f} -> {now['sample_random']:.3f}, on the main "
+                  f"path's tables {was['sample_main_path']:.3f} -> "
+                  f"{now['sample_main_path']:.3f} ({card})")
+        slower = [name for name in was
+                  if (np.asarray(now[name]) >= np.asarray(was[name])).any()]
+        if slower:
+            raise AssertionError(f"not faster than the parent's kernel: {slower}")
+    del flats, pk, iy_main, ix_main, got
 
     # the full-res path beside the scale-space one, in turns within this call
     est_full = PoseEstimator(full_cfg, seed=0, device="cuda")
@@ -919,5 +1024,29 @@ def main() -> int:
     return 0
 
 
+def _cli() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR", help="a checkout of an earlier commit: time "
+                    "its block1 and sample kernels beside this checkout's")
+    ap.add_argument("--kernel-times-of", nargs=2, metavar=("DIR", "DATA"),
+                    help="print the block1 and sample times of the checkout under DIR as JSON "
+                    "(what --parent runs)")
+    args = ap.parse_args()
+    if args.kernel_times_of:
+        import numpy as np
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
+            return 1
+        root, data_path = args.kernel_times_of
+        sys.path.insert(0, root)
+        print(json.dumps(_redesigned_times(torch, np, data_path)), flush=True)
+        return 0
+    return main(args.parent)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_cli())

@@ -45,7 +45,32 @@ def _rand(shape, scale, seed, device):
         np.random.default_rng(seed).normal(0, scale, shape).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("shape", [(2, 40, 24), (1, 184, 184), (2, 64, 368)])
+@pytest.mark.parametrize("from_regs", [False, True])
+@pytest.mark.parametrize("shift", [0, 1, 64, 131])
+def test_wgmma_tile_at_a_shifted_start_address(cuda, shift, from_regs):
+    """One bare wgmma tile against torch.matmul, the pixel operand in the
+    activation tile's plane layout and started ``shift`` pixels in: through
+    descriptors as conv1_2 takes a tap (weights x 128 pixels), and through
+    registers as conv1_1 takes its im2col (64 pixels x weights). bf16
+    products are exact in f32 and 16 of them sum within 1e-5 of any order."""
+    pixels = _rand((300, 16), 1.0, 11, cuda).to(torch.bfloat16)
+    w = _rand((64, 16), 1.0, 12, cuda).to(torch.bfloat16)
+    before = block1_mod.KERNEL.launches
+    got = block1_mod.wgmma_probe(pixels, w, shift, from_regs)
+    torch.cuda.synchronize()
+    assert block1_mod.KERNEL.launches == before          # a test entry, not the kernel
+    if from_regs:
+        want = pixels[shift:shift + 64].float() @ w.float().T
+    else:
+        want = w.float() @ pixels[shift:shift + 128].float().T
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+# the tile is 6 x 62 conv pixels: one row pair, a tile and a ragged second
+# one in both directions, every pyramid geometry's last column tile
+@pytest.mark.parametrize("shape", [(2, 40, 24), (1, 184, 184), (2, 64, 368), (1, 2, 62),
+                                   (1, 126, 130), (8, 736, 736)])
 def test_block1_kernel(cuda, shape):
     n, h, w = shape
     x = _rand((n, h, w, 3), 0.3, 9, cuda)
@@ -60,6 +85,30 @@ def test_block1_kernel(cuda, shape):
     d_ref = (ref.float() - truth).abs().max().item()
     d_got = (got.float() - truth).abs().max().item()
     assert d_got <= 2 * d_ref + 1e-3, (d_got, d_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block1_kernel_reads_the_models_view_in_place(cuda, dtype):
+    """The model hands block1 an NHWC view of NCHW planes: the kernel reads
+    it through its strides and gives what it gives for a contiguous copy,
+    bit for bit; an in-place update of a weight is seen by the next call."""
+    planes = _rand((2, 3, 46, 130), 0.3, 9, cuda).to(dtype)
+    view = planes.permute(0, 2, 3, 1)
+    assert not view.is_contiguous()
+    wts = [_rand((3, 3, 3, 64), 0.2, 0, cuda), _rand((64,), 0.1, 1, cuda),
+           _rand((3, 3, 64, 64), 0.05, 2, cuda), _rand((64,), 0.1, 3, cuda)]
+    got = block1(view, *wts)
+    assert torch.equal(got, block1(view.contiguous(), *wts))
+    truth = block1_plain(view, *wts, dtype=torch.float32)
+    d_ref = (block1_plain(view, *wts).float() - truth).abs().max().item()
+    assert (got.float() - truth).abs().max().item() <= 2 * d_ref + 1e-3
+    wts[2].mul_(0.5)
+    wts[3].zero_()
+    halved = block1(view, *wts)
+    truth = block1_plain(view, *wts, dtype=torch.float32)
+    d_ref = (block1_plain(view, *wts).float() - truth).abs().max().item()
+    assert (halved.float() - truth).abs().max().item() <= 2 * d_ref + 1e-3
+    assert not torch.equal(halved, got)
 
 
 def _low_maps(rng, c, batch, device):
@@ -98,17 +147,93 @@ def test_pyramid_peaks_kernel_wide_image(cuda):
     assert (got[mask] - want[mask]).abs().max().item() <= 1e-5
 
 
-def test_sample_kernel(cuda):
+_PAIRS = np.stack([np.arange(0, 38, 2), np.arange(1, 38, 2)], axis=1)
+# (image size, scales, batch, points per group, channel pairs, variant the
+# sizes call for): the pyramid geometry, whose maps and tap table fit a block's
+# shared memory (198 KB), and the 496 x 656 bucket, whose do not (279 KB); neighbouring and
+# scattered channel pairs (one 8-byte or two 4-byte loads per tap); one
+# image; a point count that no number of blocks divides
+_SAMPLE_CASES = {
+    "pyramid": ((368, 368), (0.5, 1.0, 1.5, 2.0), 2, (12, 12, 10), _PAIRS, "staged"),
+    "pyramid, scattered pairs": ((368, 368), (0.5, 1.0, 1.5, 2.0), 2, (12, 12, 10),
+                                 (_PAIRS[::-1] * 7 + [[3, 0]]) % 38, "staged"),
+    "pyramid, one image, 1009 points": ((368, 368), (0.5, 1.0, 1.5, 2.0), 1, (1009,),
+                                        _PAIRS, "staged"),
+    "bucket": ((496, 656), (0.5, 1.0, 1.5, 2.0), 2, (12, 12, 10), _PAIRS, "direct"),
+    "bucket, scattered pairs, 1009 points": ((496, 656), (0.5, 1.0, 1.5, 2.0), 1, (1009,),
+                                             (_PAIRS[::-1] * 7 + [[3, 0]]) % 38, "direct"),
+    "bucket, scale 1.0": ((496, 656), (1.0,), 2, (7, 10), _PAIRS, "staged"),
+    "wide image, 3 scales": ((240, 960), (0.5, 1.0, 1.5), 1, (7, 10), _PAIRS, "direct"),
+}
+
+
+@pytest.mark.parametrize("case", list(_SAMPLE_CASES))
+def test_sample_kernel(cuda, case):
+    from tpupose_torch.ops import sample as sample_mod
+
+    (out_h, out_w), scales, batch, per_group, chans, variant = _SAMPLE_CASES[case]
+    sizes = image.scale_sizes(out_h, out_w, scales, 368, 8)
     rng = np.random.default_rng(5)
-    space = ScaleSpace(_low_maps(rng, 38, 2, cuda), GEOMS, (368, 368))
-    iy = torch.from_numpy(rng.integers(0, 368, (2, 19, 12, 12, 10)).astype(np.int32)).to(cuda)
-    ix = torch.from_numpy(rng.integers(0, 368, (2, 19, 12, 12, 10)).astype(np.int32)).to(cuda)
-    iy[:, :, 0, 0, :4] = torch.tensor([0, 367, 0, 367], dtype=torch.int32)
-    ix[:, :, 0, 0, :4] = torch.tensor([0, 0, 367, 367], dtype=torch.int32)
-    chans = np.stack([np.arange(0, 38, 2), np.arange(1, 38, 2)], axis=1)
+    maps = [torch.from_numpy(rng.normal(size=(batch, ph // 8, pw // 8, 38)).astype(np.float32))
+            .to(cuda) for _, _, ph, pw in sizes]
+    space = ScaleSpace(maps, [s[:2] for s in sizes], (out_h, out_w))
+    shape = (batch, 19, *per_group)
+    iy = torch.from_numpy(rng.integers(0, out_h, shape).astype(np.int32)).to(cuda)
+    ix = torch.from_numpy(rng.integers(0, out_w, shape).astype(np.int32)).to(cuda)
+    corners_y = torch.tensor([0, out_h - 1, 0, out_h - 1], dtype=torch.int32)
+    corners_x = torch.tensor([0, 0, out_w - 1, out_w - 1], dtype=torch.int32)
+    iy.view(batch, 19, -1)[:, :, :4] = corners_y.to(cuda)
+    ix.view(batch, 19, -1)[:, :, :4] = corners_x.to(cuda)
+    before = sample_mod.KERNEL.launches
     got = sample_avg(space, iy, ix, chans)
+    assert sample_mod.KERNEL.launches == before + 1
+    limit = getattr(torch.cuda.get_device_properties(cuda), "shared_memory_per_block_optin",
+                    227 * 1024)
+    assert ("staged" if sample_mod.staged_bytes(space) <= limit else "direct") == variant
     want = sample_avg_plain(space, iy, ix, torch.as_tensor(chans))
-    assert got.shape == (2, 19, 12, 12, 10, 2)
+    assert got.shape == (*shape, 2)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("size", [(368, 368), (496, 656)])
+def test_sample_kernel_all_points_equal(cuda, size):
+    """The main path's padded peak slots: every point of a group is one
+    pixel, so every lane of a warp reads one address (both variants)."""
+    out_h, out_w = size
+    sizes = image.scale_sizes(out_h, out_w, (0.5, 1.0, 1.5, 2.0), 368, 8)
+    rng = np.random.default_rng(8)
+    maps = [torch.from_numpy(rng.normal(size=(2, ph // 8, pw // 8, 38)).astype(np.float32))
+            .to(cuda) for _, _, ph, pw in sizes]
+    space = ScaleSpace(maps, [s[:2] for s in sizes], (out_h, out_w))
+    at = torch.from_numpy(rng.integers(0, out_h, (2, 19, 1, 1, 1)).astype(np.int32)).to(cuda)
+    iy = at.expand(2, 19, 12, 12, 10).contiguous()
+    ix = (at * 3 % out_w).expand(2, 19, 12, 12, 10).contiguous()
+    got = sample_avg(space, iy, ix, _PAIRS)
+    want = sample_avg_plain(space, iy, ix, torch.as_tensor(_PAIRS))
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, got[:, :, :1, :1, :1].expand_as(got))
+
+
+@pytest.mark.parametrize("size", [(368, 368), (496, 656)])
+def test_sample_kernel_points_outside_the_image(cuda, size):
+    """Points beyond every edge (by one pixel and by many) read inside the
+    maps and agree with the plain version, whose taps clamp (both
+    variants)."""
+    out_h, out_w = size
+    sizes = image.scale_sizes(out_h, out_w, (0.5, 1.0, 1.5, 2.0), 368, 8)
+    rng = np.random.default_rng(9)
+    maps = [torch.from_numpy(rng.normal(size=(2, ph // 8, pw // 8, 38)).astype(np.float32))
+            .to(cuda) for _, _, ph, pw in sizes]
+    space = ScaleSpace(maps, [s[:2] for s in sizes], (out_h, out_w))
+    shape = (2, 19, 64, 10)
+    iy = torch.from_numpy(rng.integers(-3, out_h + 3, shape).astype(np.int32)).to(cuda)
+    ix = torch.from_numpy(rng.integers(-3, out_w + 3, shape).astype(np.int32)).to(cuda)
+    far = torch.tensor([-1, out_h, -100000, 100000, 2 ** 31 - 1, -2 ** 31], dtype=torch.int32)
+    iy[:, :, 0, :6] = far.to(cuda)
+    ix[:, :, 1, :6] = (far + torch.tensor([0, out_w - out_h, 0, 0, 0, 0], dtype=torch.int32)).to(cuda)
+    got = sample_avg(space, iy, ix, _PAIRS)
+    want = sample_avg_plain(space, iy.clamp(-4, out_h + 3), ix.clamp(-4, out_w + 3),
+                            torch.as_tensor(_PAIRS))
     assert (got - want).abs().max().item() <= 1e-5
 
 

@@ -190,3 +190,186 @@ def test_assoc_plain_bit_equal_to_pallas_interpret():
                                        n_conn=k, max_people=p, interpret=True))
     for key in ("rows", "score", "cnt", "active", "stamp"):
         np.testing.assert_array_equal(raw[key].numpy(), np.asarray(want[key]), err_msg=key)
+
+
+# --- host-side code of the redesigned kernels: weight packing, tap table ----
+
+
+def _unpack_block1_weights(w1, w2):
+    """HWIO (k1, k2) back from ops.block1.pack_weights' w1 and w2, in bf16."""
+    from tpupose_torch.ops.block1 import _ROW_CHANNEL
+
+    k1 = w1.permute(0, 2, 1).reshape(32, 64)[:27].reshape(3, 3, 3, 64)
+    k2 = torch.empty((3, 3, 64, 64), dtype=w2.dtype)
+    k2[..., torch.as_tensor(_ROW_CHANNEL)] = w2.permute(0, 1, 3, 2).reshape(3, 3, 64, 64)
+    return k1, k2
+
+
+def test_block1_packed_weights_round_trip():
+    """pack_weights lays the two kernels out as wgmma B operands
+    ([tap][ci // 8][row][ci % 8], conv1_2's rows permuted): unpacking
+    gives the HWIO tensors' bf16 values back, every entry of the layout is
+    the entry of the HWIO tensor it names, and conv1_1's K pads with zeros."""
+    from tpupose_torch.ops import block1 as b1
+
+    k1, c1, k2, c2 = (torch.from_numpy(a) for a in (
+        _rand((3, 3, 3, 64), 0.2, 0), _rand((64,), 0.1, 1), _rand((3, 3, 64, 64), 0.05, 2),
+        _rand((64,), 0.1, 3)))
+    w1, p1, w2, p2 = b1.pack_weights(k1, c1, k2, c2)
+    assert w1.shape == (4, 64, 8) and w2.shape == (9, 8, 64, 8)
+    assert w1.dtype == w2.dtype == torch.bfloat16 and w1.is_contiguous() and w2.is_contiguous()
+    assert torch.equal(p1, c1) and torch.equal(p2, c2) and p1.dtype == torch.float32
+    u1, u2 = _unpack_block1_weights(w1, w2)
+    assert torch.equal(u1, k1.to(torch.bfloat16)) and torch.equal(u2, k2.to(torch.bfloat16))
+    assert sorted(b1._ROW_CHANNEL) == list(range(64))
+    rng = np.random.default_rng(4)
+    for tap, chunk, row, i in rng.integers(0, (9, 8, 64, 8), (50, 4)):
+        want = k2[tap // 3, tap % 3, chunk * 8 + i, b1._ROW_CHANNEL[row]].to(torch.bfloat16)
+        assert w2[tap, chunk, row, i] == want
+    # a thread's accumulator rows 16 w + g and 16 w + g + 8 are a channel pair,
+    # a warp's 16 rows the 16 channels 16 w .. 16 w + 15
+    for w in range(4):
+        for g in range(8):
+            pair = [b1._ROW_CHANNEL[16 * w + g], b1._ROW_CHANNEL[16 * w + g + 8]]
+            assert pair == [16 * w + 2 * g, 16 * w + 2 * g + 1]
+    flat1 = w1.permute(0, 2, 1).reshape(32, 64)
+    assert torch.equal(flat1[:27], k1.to(torch.bfloat16).reshape(27, 64))
+    assert not flat1[27:].any()
+
+
+def test_block1_packed_weights_follow_the_parameters():
+    """packed_weights keeps its result while the parameters stand (a view
+    of the same storage hits too) and packs anew after an in-place update
+    of any of the four."""
+    from tpupose_torch.ops import block1 as b1
+
+    conv = torch.from_numpy(_rand((64, 64, 3, 3), 0.05, 2))          # OIHW, as a Conv holds it
+    k1, c1, c2 = (torch.from_numpy(a) for a in (
+        _rand((3, 3, 3, 64), 0.2, 0), _rand((64,), 0.1, 1), _rand((64,), 0.1, 3)))
+    first = b1.packed_weights(k1, c1, conv.permute(2, 3, 1, 0), c2)
+    again = b1.packed_weights(k1, c1, conv.permute(2, 3, 1, 0), c2)
+    assert all(a is b for a, b in zip(first, again))
+    with torch.no_grad():
+        conv.mul_(2.0)
+    after = b1.packed_weights(k1, c1, conv.permute(2, 3, 1, 0), c2)
+    assert after[2] is not first[2]
+    assert torch.equal(_unpack_block1_weights(after[0], after[2])[1],
+                       conv.permute(2, 3, 1, 0).to(torch.bfloat16))
+    c2.add_(1.0)
+    assert torch.equal(b1.packed_weights(k1, c1, conv.permute(2, 3, 1, 0), c2)[3], c2)
+    other = conv.clone()                                # other storage, same values
+    assert b1.packed_weights(k1, c1, other.permute(2, 3, 1, 0), c2)[2] is not after[2]
+
+
+def test_block1_packed_weights_of_inference_tensors():
+    """Inference tensors have no version counter: they are packed on every
+    call, rightly after an in-place change, and the first call warns."""
+    from tpupose_torch.ops import block1 as b1
+
+    with torch.inference_mode():
+        k1, c1, k2, c2 = (torch.from_numpy(a).clone() for a in (
+            _rand((3, 3, 3, 64), 0.2, 0), _rand((64,), 0.1, 1), _rand((3, 3, 64, 64), 0.05, 2),
+            _rand((64,), 0.1, 3)))
+        b1._WARNED_INFERENCE = False
+        with pytest.warns(RuntimeWarning, match="inference tensors"):
+            first = b1.packed_weights(k1, c1, k2, c2)
+        k2.mul_(2.0)
+        after = b1.packed_weights(k1, c1, k2, c2)
+    assert torch.equal(_unpack_block1_weights(first[0], first[2])[1] * 2,
+                       _unpack_block1_weights(after[0], after[2])[1])
+    assert torch.equal(_unpack_block1_weights(after[0], after[2])[1], k2.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("hw,scales", [((368, 368), (0.5, 1.0, 1.5, 2.0)),
+                                       ((48, 80), (0.5, 1.0, 2.0))])
+def test_sample_tap_table_matches_axis_taps(hw, scales):
+    """The kernel's tap table, built once per geometry on the host, against
+    the port's axis_taps and the JAX package's _axis_taps at every
+    coordinate of every pyramid geometry and one beyond each edge: indices
+    equal, weights bit-equal."""
+    from tpupose.decode.scalespace import _axis_taps
+    from tpupose_torch.ops import sample as sample_mod
+
+    out_h, out_w = hw
+    sizes = scale_sizes(out_h, out_w, scales, 368, 8)
+    geoms = [s[:2] for s in sizes]
+    low = [(s[2] // 8, s[3] // 8) for s in sizes]
+    w, idx = sample_mod.tap_table(geoms, low, hw)
+    per_scale = out_h + out_w + 4
+    assert w.shape == idx.shape == (len(sizes) * per_scale, 4)
+    assert w.dtype == torch.float32 and idx.dtype == torch.int16
+    for s, ((rh, rw), (hl, wl)) in enumerate(zip(geoms, low)):
+        for first, n, mid, size in ((0, out_h, rh, hl), (out_h + 2, out_w, rw, wl)):
+            at = slice(s * per_scale + first, s * per_scale + first + n + 2)
+            t_idx, t_w = sample_mod.axis_taps(torch.arange(-1, n + 1), mid, size, n)
+            j_idx, j_w = _axis_taps(jnp.arange(-1, n + 1), mid, size, n)
+            assert torch.equal(idx[at].to(torch.int32), t_idx)
+            assert torch.equal(w[at], t_w)
+            np.testing.assert_array_equal(idx[at].numpy(), np.asarray(j_idx))
+            np.testing.assert_array_equal(w[at].numpy(), np.asarray(j_w))
+            assert int(idx[at].min()) >= 0 and int(idx[at].max()) < size
+            # beyond an edge the taps have settled on the edge's pixels (both
+            # steps of the chain at one place): a point farther out has the
+            # same pixels and, to rounding, the same weight on each
+            far_idx, far_w = sample_mod.axis_taps(torch.tensor([-9, n + 9]), mid, size, n)
+            ends = w[at][[0, -1]]
+            assert torch.equal(idx[at][[0, -1]].to(torch.int32), far_idx)
+            assert torch.equal(far_idx[:, :2], far_idx[:, 2:])
+            assert (ends[:, :2] + ends[:, 2:] - far_w[:, :2] - far_w[:, 2:]).abs().max() <= 1e-6
+
+
+def test_sample_tap_table_reproduces_the_plain_readout():
+    """The table's layout and the kernel's order of summation (table
+    look-up by coordinate + 1, x taps, then y taps, then scales), evaluated
+    in torch with separately rounded products and sums, equal
+    sample_avg_plain bit for bit, at points one beyond each edge too, and
+    one table serves every call of a geometry. The kernel's own arithmetic
+    (fused multiply-adds) is held to 1e-5 on the card."""
+    from tpupose_torch.ops import sample as sample_mod
+
+    rng = np.random.default_rng(2)
+    sizes = scale_sizes(48, 80, (0.5, 1.0, 2.0), 368, 8)
+    geoms = [s[:2] for s in sizes]
+    maps = [torch.from_numpy(m) for m in _low_maps(rng, sizes, 38, 2)]
+    space = TSpace(maps, geoms, (48, 80))
+    iy = torch.from_numpy(rng.integers(0, 48, (2, 19, 7)).astype(np.int32))
+    ix = torch.from_numpy(rng.integers(0, 80, (2, 19, 7)).astype(np.int32))
+    iy[:, :, :2] = torch.tensor([-1, 48], dtype=torch.int32)
+    ix[:, :, 1:3] = torch.tensor([80, -1], dtype=torch.int32)
+    chans = torch.as_tensor(topology.decode_limb_tables()[1])
+    w, idx = sample_mod._device_tap_table(space, "cpu")
+    assert sample_mod._device_tap_table(space, "cpu")[0] is w
+    acc = torch.zeros((2, 19, 7, 2))
+    for s, m in enumerate(maps):
+        hl, wl = m.shape[1:3]
+        ey = (s * 132 + iy + 1).long()
+        ex = (s * 132 + 50 + ix + 1).long()
+        pair = m[torch.arange(2)[:, None, None, None, None, None],
+                 idx[ey].long()[..., :, None, None], idx[ex].long()[..., None, :, None],
+                 chans.long()[None, :, None, None, None, :]]          # (B, L, P, 4, 4, 2)
+        v = torch.zeros((2, 19, 7, 2))
+        for a in range(4):
+            r = torch.zeros((2, 19, 7, 2))
+            for e in range(4):
+                r = r + w[ex][..., e, None] * pair[..., a, e, :]
+            v = v + w[ey][..., a, None] * r
+        acc = acc + v
+    assert torch.equal(acc / 3.0, sample_mod.sample_avg_plain(space, iy, ix, chans))
+
+
+@pytest.mark.parametrize("hw,scales,fits", [((368, 368), (0.5, 1.0, 1.5, 2.0), True),
+                                            ((496, 656), (0.5, 1.0, 1.5, 2.0), False),
+                                            ((496, 656), (1.0,), True),
+                                            ((240, 960), (0.5, 1.0, 1.5), False)])
+def test_sample_staged_bytes(hw, scales, fits):
+    """The shared memory the staged variant asks for, against the 227 KB a
+    block of the H100 may opt in to: the pyramid's maps and table fit (198
+    KB), the 496 x 656 bucket's four scales do not."""
+    from tpupose_torch.ops import sample as sample_mod
+
+    sizes = scale_sizes(*hw, scales, 368, 8)
+    maps = [torch.zeros((1, ph // 8, pw // 8, 38)) for _, _, ph, pw in sizes]
+    need = sample_mod.staged_bytes(TSpace(maps, [s[:2] for s in sizes], hw))
+    table = len(sizes) * (sum(hw) + 4) * (4 * 4 + 4 * 2)
+    assert need == sum(m[0, :, :, :2].numel() * 4 for m in maps) + table + 32
+    assert (need <= 227 * 1024) == fits

@@ -32,6 +32,34 @@ def sample_fullres(paf: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
         torch.float32)
 
 
+def limb_points(peaks: dict[str, torch.Tensor], out_hw, mid_num: int = 10):
+    """The sample points of every candidate pair of every limb.
+
+    peaks: (B, 18, K) tables. Returns (iy, ix, ux, uy, norm): int32 (B, 19,
+    K, K, mid_num) rounded, clipped points along each A -> B segment, and
+    per pair (B, 19, K, K) the unit direction and the length, in decode
+    limb order. Empty peak slots hold (0, 0), so their pairs' points all
+    coincide.
+    """
+    part_pairs, _ = topology.decode_limb_tables()
+    pairs = torch.as_tensor(part_pairs, dtype=torch.int64, device=peaks["xs"].device)
+    out_h, out_w = out_hw
+    axf, ayf = (peaks[k][:, pairs[:, 0]].to(torch.float32) for k in ("xs", "ys"))   # (B, 19, K)
+    bxf, byf = (peaks[k][:, pairs[:, 1]].to(torch.float32) for k in ("xs", "ys"))
+    dx = bxf[..., None, :] - axf[..., :, None]     # (B, 19, K, K)
+    dy = byf[..., None, :] - ayf[..., :, None]
+    norm = torch.sqrt(dx * dx + dy * dy)
+    norm_safe = torch.clamp(norm, min=1e-8)
+
+    # built on the CPU, where it equals jnp.linspace bit for bit
+    t = torch.linspace(0.0, 1.0, mid_num, dtype=torch.float32).to(dx.device)
+    my = ayf[..., :, None, None] + dy[..., None] * t   # (B, 19, K, K, M)
+    mx = axf[..., :, None, None] + dx[..., None] * t
+    iy = torch.clamp(torch.round(my).to(torch.int32), 0, out_h - 1)
+    ix = torch.clamp(torch.round(mx).to(torch.int32), 0, out_w - 1)
+    return iy, ix, dx / norm_safe, dy / norm_safe, norm
+
+
 def pair_scores(paf, peaks: dict[str, torch.Tensor], mid_num: int = 10,
                 thre2: float = 0.05, min_ratio: float = 0.8):
     """All-limb pair tables of a batch.
@@ -46,22 +74,10 @@ def pair_scores(paf, peaks: dict[str, torch.Tensor], mid_num: int = 10,
     scale_space = isinstance(paf, ScaleSpace)
     out_h, out_w = paf.out_hw if scale_space else paf.shape[1:3]
     height = float(out_h)
-    ax, ay, av = (peaks[k][:, pairs[:, 0]] for k in ("xs", "ys", "valid"))   # (B, 19, K)
-    bx, by, bv = (peaks[k][:, pairs[:, 1]] for k in ("xs", "ys", "valid"))
-    axf, ayf, bxf, byf = (v.to(torch.float32) for v in (ax, ay, bx, by))
-    dx = bxf[..., None, :] - axf[..., :, None]     # (B, 19, K, K)
-    dy = byf[..., None, :] - ayf[..., :, None]
-    norm = torch.sqrt(dx * dx + dy * dy)
+    av = peaks["valid"][:, pairs[:, 0]]     # (B, 19, K)
+    bv = peaks["valid"][:, pairs[:, 1]]
+    iy, ix, ux, uy, norm = limb_points(peaks, (out_h, out_w), mid_num)
     norm_safe = torch.clamp(norm, min=1e-8)
-    ux = dx / norm_safe
-    uy = dy / norm_safe
-
-    # built on the CPU, where it equals jnp.linspace bit for bit
-    t = torch.linspace(0.0, 1.0, mid_num, dtype=torch.float32).to(dx.device)
-    my = ayf[..., :, None, None] + dy[..., None] * t   # (B, 19, K, K, M)
-    mx = axf[..., :, None, None] + dx[..., None] * t
-    iy = torch.clamp(torch.round(my).to(torch.int32), 0, out_h - 1)
-    ix = torch.clamp(torch.round(mx).to(torch.int32), 0, out_w - 1)
     sample = sample_avg if scale_space else sample_fullres
     sampled = sample(paf, iy, ix, paf_chans)           # (B, 19, K, K, M, 2)
     score_mid = sampled[..., 0] * ux[..., None] + sampled[..., 1] * uy[..., None]

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "hopper.cuh")
 
 
 def find_nvcc() -> str:
@@ -87,12 +87,22 @@ class CudaKernel:
                 fn = getattr(handle, self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
+                self._handle = handle
                 err = handle.tp_error_string
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
                 self._error_string = err
                 self._fn = fn
         return self._fn
+
+    def entry(self, name: str, argtypes: list):
+        """Another ``extern "C"`` function of this kernel's library (a test
+        entry); calling it does not count as a launch."""
+        self.build()
+        fn = getattr(self._handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
     def launch(self, *args) -> None:
         """Enqueue the kernel; raise if the launch was refused."""

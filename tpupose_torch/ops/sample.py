@@ -2,7 +2,9 @@
 
 Counterpart of ``tpupose/ops/pallas_sample.py`` (the readout contract of
 ``scalespace.sample_avg``). ``sample_avg`` launches ``csrc/sample.cu``
-for CUDA tensors and runs ``sample_avg_plain`` for CPU tensors.
+for CUDA tensors and runs ``sample_avg_plain`` for CPU tensors. The
+kernel takes its taps from ``tap_table``, which is ``axis_taps`` at every
+coordinate and one beyond each edge, built on the host once per geometry.
 """
 
 from __future__ import annotations
@@ -21,21 +23,25 @@ class _Params(ctypes.Structure):
     _fields_ = [
         ("n_scales", ctypes.c_int), ("batch", ctypes.c_int),
         ("groups", ctypes.c_int), ("out_h", ctypes.c_int),
-        ("out_w", ctypes.c_int), ("points", ctypes.c_longlong),
+        ("out_w", ctypes.c_int), ("paired", ctypes.c_int),
+        ("points", ctypes.c_longlong),
         ("hl", ctypes.c_int * _MAX_SCALES), ("wl", ctypes.c_int * _MAX_SCALES),
-        ("rh", ctypes.c_int * _MAX_SCALES), ("rw", ctypes.c_int * _MAX_SCALES),
         ("cstride", ctypes.c_int * _MAX_SCALES),
-        ("sy", ctypes.c_float * _MAX_SCALES), ("sx", ctypes.c_float * _MAX_SCALES),
         ("maps", ctypes.c_void_p * _MAX_SCALES),
         ("iy", ctypes.c_void_p), ("ix", ctypes.c_void_p),
         ("chans", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("tap_w", ctypes.c_void_p), ("tap_i", ctypes.c_void_p),
     ]
 
 
 KERNEL = CudaKernel(
-    "sample", "tp_sample", [ctypes.POINTER(_Params), ctypes.c_void_p],
+    "sample", "tp_sample",
+    [ctypes.POINTER(_Params), ctypes.c_void_p],
     replaces="tpupose/ops/pallas_sample.py:130",
 )
+_TABLES: dict = {}          # (geometry, device) -> tap table on that device
+_TABLES_MAX = 32
+_CHANS: dict = {}           # (channel pairs, device) -> int32 (L, 2) on that device
 
 
 def axis_taps(q: torch.Tensor, size_mid: int, size_low: int, out_size: int,
@@ -65,6 +71,63 @@ def axis_taps(q: torch.Tensor, size_mid: int, size_low: int, out_size: int,
     idx = torch.stack([a0, a1, b0, b1], dim=-1)
     w = torch.stack([w0 * wa0, w0 * wa1, w1 * wb0, w1 * wb1], dim=-1)
     return idx, w
+
+
+def tap_table(geoms, low_sizes, out_hw):
+    """Every tap set of a geometry: (w (E, 4) f32, idx (E, 4) int16) with
+    E = n_scales * (out_h + out_w + 4). A scale's rows are its y tap sets
+    at image rows -1 .. out_h, then its x tap sets at columns -1 .. out_w:
+    ``axis_taps`` of all coordinates, so the kernel's weights are the plain
+    version's bit for bit. The coordinate beyond each edge serves every
+    point outside the image: there the clamped taps rest on the edge pixel.
+
+    geoms: per scale (rh, rw), the cropped x8 size; low_sizes: per scale
+    (hl, wl), the low-res map size.
+    """
+    out_h, out_w = out_hw
+    ws, idxs = [], []
+    for (rh, rw), (hl, wl) in zip(geoms, low_sizes):
+        for n, mid, low in ((out_h, rh, hl), (out_w, rw, wl)):
+            idx, w = axis_taps(torch.arange(-1, n + 1, dtype=torch.int32), mid, low, n)
+            ws.append(w)
+            idxs.append(idx.to(torch.int16))
+    return torch.cat(ws), torch.cat(idxs)
+
+
+def _device_tap_table(space, device):
+    """``tap_table`` of ``space`` on ``device``, built once per geometry."""
+    low = tuple(tuple(m.shape[1:3]) for m in space.maps)
+    key = (tuple(tuple(g) for g in space.geoms), low, tuple(space.out_hw), str(device))
+    hit = _TABLES.get(key)
+    if hit is None:
+        while len(_TABLES) >= _TABLES_MAX:
+            del _TABLES[next(iter(_TABLES))]
+        w, idx = tap_table(space.geoms, low, space.out_hw)
+        hit = _TABLES[key] = (w.to(device).contiguous(), idx.to(device).contiguous())
+    return hit
+
+
+def staged_bytes(space) -> int:
+    """Shared memory the staged variant needs for ``space``: one image's
+    channel pair of every scale and the tap table. The launcher takes the
+    direct variant where this exceeds what a block may opt in to (227 KB
+    on the H100)."""
+    out_h, out_w = space.out_hw
+    pixels = sum(m.shape[1] * m.shape[2] for m in space.maps)
+    return pixels * 8 + _MAX_SCALES * 4 + len(space.maps) * (out_h + out_w + 4) * 24
+
+
+def _device_chans(chans, device):
+    """The (L, 2) channel pairs on ``device``, uploaded once per table: a
+    host-to-device copy per call would hold the host until the stream's
+    earlier work is done."""
+    key = (tuple(chans.reshape(-1).tolist()), str(device))
+    hit = _CHANS.get(key)
+    if hit is None:
+        while len(_CHANS) >= _TABLES_MAX:
+            del _CHANS[next(iter(_CHANS))]
+        hit = _CHANS[key] = chans.to(device).contiguous()
+    return hit
 
 
 def sample_avg_plain(space, iy, ix, chans):
@@ -100,10 +163,13 @@ def sample_avg(space, iy: torch.Tensor, ix: torch.Tensor, chans) -> torch.Tensor
     """Scale-averaged chained-bilinear readout at integer image points.
 
     space: ScaleSpace of per-scale (B, Hl, Wl, C) maps. iy/ix: int (B, L,
-    *S) points inside the image; chans: (L, 2) channel pair of each group
+    *S) points (one outside the image reads as the plain version's clamped
+    taps do, the edge pixel's value); chans: (L, 2) channel pair of each group
     l. Returns (B, L, *S, 2) f32: ``mean_s(upsample_to(maps[s]))`` at the
     points, on channels chans[l]. CPU tensors take ``sample_avg_plain``;
-    CUDA tensors the kernel.
+    CUDA tensors the kernel: its staged variant where one image's channel
+    pair of every scale and the tap table fit a block's shared memory, its
+    direct variant otherwise.
     """
     chans = torch.as_tensor(chans, dtype=torch.int32, device="cpu")
     if iy.shape != ix.shape or iy.dim() < 2 or tuple(chans.shape) != (iy.shape[1], 2):
@@ -122,12 +188,14 @@ def sample_avg(space, iy: torch.Tensor, ix: torch.Tensor, chans) -> torch.Tensor
         raise ValueError(f"sample_avg: unsupported device {dev}")
     if len(space.maps) > _MAX_SCALES:
         raise ValueError(f"sample_avg: at most {_MAX_SCALES} scales")
+    if any(max(m.shape[1:3]) > 32767 for m in space.maps):
+        raise ValueError("sample_avg: the tap table holds 16-bit low-res indices")
     maps = [m.to(torch.float32).contiguous() for m in space.maps]
     if any(m.device != dev for m in maps):
         raise ValueError("sample_avg: maps and points on different devices")
     iyc = iy.to(torch.int32).contiguous()
     ixc = ix.to(torch.int32).contiguous()
-    ch = chans.to(dev).contiguous()
+    ch = _device_chans(chans, dev)
     out = torch.empty((*iy.shape, 2), dtype=torch.float32, device=dev)
     out_h, out_w = space.out_hw
     p = _Params()
@@ -136,14 +204,17 @@ def sample_avg(space, iy: torch.Tensor, ix: torch.Tensor, chans) -> torch.Tensor
     p.groups = iy.shape[1]
     p.out_h, p.out_w = out_h, out_w
     p.points = iy[0, 0].numel()
-    for s, (m, (rh, rw)) in enumerate(zip(maps, space.geoms)):
+    for s, m in enumerate(maps):
         p.hl[s], p.wl[s], p.cstride[s] = m.shape[1], m.shape[2], m.shape[3]
-        p.rh[s], p.rw[s] = rh, rw
-        p.sy[s] = rh / out_h       # rounded to f32, as the reference's constant
-        p.sx[s] = rw / out_w
         p.maps[s] = m.data_ptr()
     p.iy, p.ix, p.chans, p.out = (iyc.data_ptr(), ixc.data_ptr(),
                                   ch.data_ptr(), out.data_ptr())
+    # one 8-byte load per tap where every pair is two neighbouring channels
+    # at an 8-byte aligned offset, chosen here once per launch
+    p.paired = int(bool((chans[:, 0] % 2 == 0).all() and (chans[:, 1] == chans[:, 0] + 1).all()
+                        and all(m.shape[3] % 2 == 0 and m.data_ptr() % 8 == 0 for m in maps)))
+    tap_w, tap_i = _device_tap_table(space, dev)
+    p.tap_w, p.tap_i = tap_w.data_ptr(), tap_i.data_ptr()
     if out.numel():
         KERNEL.launch(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
     return out
