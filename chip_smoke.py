@@ -4,10 +4,14 @@
     python3 chip_smoke.py [--parent DIR]
 
 With ``--parent DIR`` (a checkout of an earlier commit of this repository)
-the two redesigned kernels of that checkout, block1 and sample, are timed
-beside this checkout's on the same inputs, in turns (parent, change,
-change, parent; the parent's in a process of its own), and their times
-enter the kernels' record as ``prev_ms``.
+the redesigned kernels of that checkout, block1, sample, pyramid_peaks and
+peaks, are timed beside this checkout's on the same inputs, in turns
+(parent, change, change, parent; the parent's in a process of its own),
+and their times enter the kernels' record as ``prev_ms``. Each of them
+whose source differs from the parent's must be faster than the parent's;
+the others are shown. The line also says how many elements of the
+pyramid_peaks output differ, bit for bit, from the parent's on the same
+saved inputs.
 
 Phases, one printed line each (a phase that fails raises, and the script
 exits non-zero):
@@ -160,20 +164,27 @@ def _nbytes(*tensors) -> int:
 
 
 def _redesigned_times(torch, np, data_path: str) -> dict:
-    """Device ms of block1 (each pyramid geometry at batch 8, fed as phase b
-    feeds it) and of sample (seeded random points on seeded maps; the maps
-    and point tables saved under ``data_path``), of whichever tpupose_torch
-    is first on the path. Inputs depend on nothing but the seeds."""
+    """Device ms of the redesigned kernels of whichever tpupose_torch is first
+    on the path: block1 (each pyramid geometry at batch 8, fed as phase b
+    feeds it), sample (seeded random points on seeded maps, and the main
+    path's point tables), pyramid_peaks (batch 8, 4 scales to 368x368) and
+    peaks ((8, 368, 368, 19)), the last three on the inputs saved under
+    ``data_path``. The pyramid_peaks output is saved beside them, its path
+    under "pyramid_peaks_out". Inputs depend on nothing but the seeds."""
     from tpupose_torch import topology
+    from tpupose_torch.config import DEFAULT
     from tpupose_torch.decode.scalespace import ScaleSpace
     from tpupose_torch.ops import block1 as block1_mod
     from tpupose_torch.ops import image
+    from tpupose_torch.ops import peaks as peaks_mod
+    from tpupose_torch.ops import pyramid_peaks as pp_mod
     from tpupose_torch.ops import sample as sample_mod
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     sizes = image.scale_sizes(368, 368, (0.5, 1.0, 1.5, 2.0), 368, 8)
     geoms = [s[:2] for s in sizes]
+    sigma, thre1 = DEFAULT.inference.peak_sigma, DEFAULT.inference.thre1
 
     def rand(shape, scale):
         return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to(dev)
@@ -194,6 +205,12 @@ def _redesigned_times(torch, np, data_path: str) -> dict:
     space = ScaleSpace([m.to(dev) for m in data["maps"]], geoms, (368, 368))
     iy, ix = data["iy"].to(dev), data["ix"].to(dev)
     out["sample_main_path"] = _ms(torch, lambda: sample_mod.sample_avg(space, iy, ix, chans), 3)
+    heat = ScaleSpace([m.to(dev) for m in data["heat"]], geoms, (368, 368))
+    out["pyramid_peaks_out"] = f"{data_path}.{os.getpid()}.pyramid_peaks.pt"
+    torch.save(pp_mod.pyramid_peak_scores(heat, 18, sigma, thre1).cpu(), out["pyramid_peaks_out"])
+    out["pyramid_peaks"] = _ms(torch, lambda: pp_mod.pyramid_peak_scores(heat, 18, sigma, thre1), 5)
+    field = data["field"].to(dev)
+    out["peaks"] = _ms(torch, lambda: peaks_mod.peak_scores(field, 18, sigma, thre1), 5)
     return out
 
 
@@ -445,7 +462,8 @@ def main(parent: str | None = None) -> int:
     prng = np.random.default_rng(3)
     for shape in ((8, 368, 368, 19), (2, 496, 656, 19)):
         noise = torch.from_numpy(prng.normal(size=shape).astype(np.float32))
-        field = (peaks_mod.gaussian_blur(noise, 4.0) * 0.75).to(dev)
+        field_cpu = peaks_mod.gaussian_blur(noise, 4.0) * 0.75
+        field = field_cpu.to(dev)
         got = pk_mod.peak_scores(field, 18, icfg.peak_sigma, icfg.thre1)
         torch.cuda.synchronize()
         want = pk_mod.peak_scores_plain(field, 18, icfg.peak_sigma, icfg.thre1)
@@ -458,7 +476,7 @@ def main(parent: str | None = None) -> int:
                                  f"({flips} mask flips)")
         _say("b", f"peaks at {shape}: {n_peaks} peaks, bit-equal to the plain version: pass")
         if shape[0] == 8:
-            pk_field, pk_out = field, got
+            pk_field, pk_out, pk_field_cpu = field, got, field_cpu
     twin = decode_np.find_peaks_np(pk_field[0].cpu().numpy(), icfg)
     twin_err, twin_n = 0.0, 0
     for part in range(18):
@@ -664,20 +682,35 @@ def main(parent: str | None = None) -> int:
     _say("e", f"sample, device ms at {tuple(iy_main.shape)} points: the main path's own tables "
               f"({n_live} live peaks of {8 * 18 * k} slots, the rest coincide) {main_ms:.3f} "
               f"(max err {err:.1e} <= 1e-5), random points {record['sample']['ms']:.3f} ({card})")
-    for name in ("block1", "sample"):
+    redesigned = ("block1", "sample", "pyramid_peaks", "peaks")
+    for name in redesigned:
         record[name]["prev_ms"] = None
     if parent is not None:
         with tempfile.TemporaryDirectory() as tmp:
-            data_path = os.path.join(tmp, "main_path_points.pt")
+            data_path = os.path.join(tmp, "kernel_inputs.pt")
             torch.save({"maps": [m.float().cpu() for m in ps.maps], "iy": iy_main.cpu(),
-                        "ix": ix_main.cpu()}, data_path)
+                        "ix": ix_main.cpu(), "heat": [m.cpu() for m in heat_space.maps],
+                        "field": pk_field_cpu}, data_path)
             turns = [_parent_times(parent, data_path), _redesigned_times(torch, np, data_path),
                      _redesigned_times(torch, np, data_path), _parent_times(parent, data_path)]
+            pp_outs = [torch.load(t.pop("pyramid_peaks_out")).view(torch.int32) for t in turns]
+        # bit for bit: the parent's pyramid_peaks output against each run's
+        pp_diff = [int((o != pp_outs[0]).sum()) for o in pp_outs[1:]]
         was = {key: np.mean([turns[0][key], turns[3][key]], axis=0) for key in turns[0]}
         now = {key: np.mean([turns[1][key], turns[2][key]], axis=0) for key in turns[0]}
         record["block1"]["prev_ms"] = float(was["block1"].sum())
         record["sample"]["prev_ms"] = float(was["sample_random"])
         record["sample"]["prev_main_path_ms"] = float(was["sample_main_path"])
+        record["pyramid_peaks"]["prev_ms"] = float(was["pyramid_peaks"])
+        record["peaks"]["prev_ms"] = float(was["peaks"])
+        # a kernel whose source differs from the parent's is redesigned against it
+        changed = set()
+        for kern in ops.KERNELS:
+            if kern.name in redesigned:
+                with open(os.path.join(parent, kern.source), "rb") as f_was, \
+                        open(os.path.join(ROOT, kern.source), "rb") as f_now:
+                    if f_was.read() != f_now.read():
+                        changed.add(kern.name)
         _say("e", "the redesigned kernels beside the parent's, in turns (parent, change, change, "
                   "parent), device ms, parent -> change: block1 per geometry "
                   + ", ".join(f"{a:.3f} -> {b:.3f}" for a, b in zip(was["block1"], now["block1"]))
@@ -685,11 +718,18 @@ def main(parent: str | None = None) -> int:
                   f"{now['block1'].sum():.3f}; sample on random points "
                   f"{was['sample_random']:.3f} -> {now['sample_random']:.3f}, on the main "
                   f"path's tables {was['sample_main_path']:.3f} -> "
-                  f"{now['sample_main_path']:.3f} ({card})")
-        slower = [name for name in was
-                  if (np.asarray(now[name]) >= np.asarray(was[name])).any()]
+                  f"{now['sample_main_path']:.3f}; pyramid_peaks {was['pyramid_peaks']:.4f} -> "
+                  f"{now['pyramid_peaks']:.4f}; peaks {was['peaks']:.4f} -> {now['peaks']:.4f} "
+                  f"({card}); sources changed: {sorted(changed)}")
+        _say("e", "pyramid_peaks on the saved inputs, elements whose bits differ from the "
+                  f"parent's first run (change, change, parent): {pp_diff} of {pp_outs[0].numel()}"
+                  + (": bit-equal" if not any(pp_diff) else ""))
+        timed = {"block1": "block1", "sample_random": "sample", "sample_main_path": "sample",
+                 "pyramid_peaks": "pyramid_peaks", "peaks": "peaks"}
+        slower = [key for key, name in timed.items()
+                  if name in changed and (np.asarray(now[key]) >= np.asarray(was[key])).any()]
         if slower:
-            raise AssertionError(f"not faster than the parent's kernel: {slower}")
+            raise AssertionError(f"a redesigned kernel is not faster than the parent's: {slower}")
     del flats, pk, iy_main, ix_main, got
 
     # the full-res path beside the scale-space one, in turns within this call
@@ -1029,9 +1069,9 @@ def _cli() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", help="a checkout of an earlier commit: time "
-                    "its block1 and sample kernels beside this checkout's")
+                    "its block1, sample, pyramid_peaks and peaks kernels beside this checkout's")
     ap.add_argument("--kernel-times-of", nargs=2, metavar=("DIR", "DATA"),
-                    help="print the block1 and sample times of the checkout under DIR as JSON "
+                    help="print the redesigned kernels' times of the checkout under DIR as JSON "
                     "(what --parent runs)")
     args = ap.parse_args()
     if args.kernel_times_of:

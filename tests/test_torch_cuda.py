@@ -147,6 +147,75 @@ def test_pyramid_peaks_kernel_wide_image(cuda):
     assert (got[mask] - want[mask]).abs().max().item() <= 1e-5
 
 
+# (image size, scales, batch): the 4-scale pyramid at batch 8 (the main
+# path), scale 1.0 at batch 16, the 496 x 656 bucket, a wide non-square
+# image (three column tiles), one image
+_PYRAMID_CASES = {
+    "pyramid, batch 8": ((368, 368), (0.5, 1.0, 1.5, 2.0), 8),
+    "scale 1.0, batch 16": ((368, 368), (1.0,), 16),
+    "bucket 496x656": ((496, 656), (0.5, 1.0, 1.5, 2.0), 2),
+    "wide 200x1200": ((200, 1200), (0.5, 1.0, 1.5), 1),
+    "pyramid, batch 1": ((368, 368), (0.5, 1.0, 1.5, 2.0), 1),
+}
+
+
+@pytest.mark.parametrize("case", list(_PYRAMID_CASES))
+def test_pyramid_peaks_kernel_geometries(cuda, case):
+    """The banded kernel against the plain version at the geometries the
+    decode runs: one launch, the same peak mask, values within 1e-5. The
+    maps are the network's layout, an NHWC view of channels-last planes
+    with a 19th channel, read in place; a contiguous copy gives the same
+    bits. The kernel's shared memory is what the wrapper's budget says."""
+    import ctypes
+
+    from tpupose_torch.decode.scalespace import scale_shapes
+    from tpupose_torch.ops import pyramid_peaks as pp
+
+    hw, scales, batch = _PYRAMID_CASES[case]
+    sizes = image.scale_sizes(*hw, scales, 368, 8)
+    rng = np.random.default_rng(len(case))
+    maps = []
+    for _, _, ph, pw in sizes:
+        m = rng.normal(size=(batch, ph // 8, pw // 8, 19)).astype(np.float32)
+        m = (m + np.roll(m, 1, 1) + np.roll(m, 1, 2)) / 3.0 * 0.6
+        planes = torch.from_numpy(m).permute(0, 3, 1, 2).to(cuda, memory_format=torch.channels_last)
+        maps.append(planes.permute(0, 2, 3, 1))
+    space = ScaleSpace(maps, [s[:2] for s in sizes], hw)
+    before = pp.KERNEL.launches
+    got = pyramid_peak_scores(space, 18, 3.0, 0.1)
+    assert pp.KERNEL.launches == before + 1
+    want = pyramid_peak_scores_plain(space, 18, 3.0, 0.1)
+    mask = torch.isfinite(want)
+    assert got.shape == (batch, 18, hw[0] * hw[1]) and mask.sum() > 10 * batch
+    assert torch.equal(torch.isfinite(got), mask)
+    assert (got[mask] - want[mask]).abs().max().item() <= 1e-5
+    dense = ScaleSpace([m.contiguous() for m in maps], space.geoms, hw)
+    assert torch.equal(pyramid_peak_scores(dense, 18, 3.0, 0.1), got)
+    smem = pp.KERNEL.entry("tp_pyramid_peaks_smem", [ctypes.POINTER(pp._Params)])
+    params = pp._params(space, 18, 3.0, 0.1, got)
+    assert smem(ctypes.byref(params)) == pp.smem_bytes(scale_shapes(space), hw, 3.0)
+
+
+def test_pyramid_peaks_kernel_plateau(cuda):
+    """Constant maps above the threshold: nearly every pixel is a peak (the
+    NMS is >=; which ones depends on the last ulp of the blur, so the mask
+    is not held to the plain version's here), more than a block lists for
+    its average after the NMS, and the rest are averaged where they are
+    found: every finite value is the plain averaged map's, within 1e-5."""
+    from tpupose_torch.decode.scalespace import pyramid_heat_maps
+
+    sizes = image.scale_sizes(368, 368, (0.5, 1.0, 1.5, 2.0), 368, 8)
+    maps = [torch.full((1, ph // 8, pw // 8, 19), 0.5, device=cuda) for _, _, ph, pw in sizes]
+    space = ScaleSpace(maps, [s[:2] for s in sizes], (368, 368))
+    got = pyramid_peak_scores(space, 18, 3.0, 0.1)
+    avg = pyramid_heat_maps(space.map_scales(lambda m: m[..., :18]), 3.0)[0]
+    avg = avg.permute(0, 3, 1, 2).reshape(1, 18, -1)
+    found = torch.isfinite(got)
+    # the first block's 14 rows of channel 0: more peaks than its list holds
+    assert int(found[0, 0].view(368, 368)[:14, :382].sum()) > 1024
+    assert (got[found] - avg[found]).abs().max().item() <= 1e-5
+
+
 _PAIRS = np.stack([np.arange(0, 38, 2), np.arange(1, 38, 2)], axis=1)
 # (image size, scales, batch, points per group, channel pairs, variant the
 # sizes call for): the pyramid geometry, whose maps and tap table fit a block's
@@ -299,6 +368,38 @@ def test_peaks_kernel_bit_equal(cuda, shape):
     assert torch.equal(got.cpu(), peaks_mod.peak_scores_plain(field.cpu(), 18, 3.0, 0.1))
     with pytest.raises(ValueError):
         peaks_mod.peak_scores(field, 18, sigma=9.0)       # 73 taps: more than the kernel takes
+    for sigma in (0.1, 1.0, 2.0, 4.0):                      # radius 0, 4, 8, 16
+        assert torch.equal(peaks_mod.peak_scores(field, 18, sigma, 0.1),
+                           peaks_mod.peak_scores_plain(field, 18, sigma, 0.1)), sigma
+
+
+# edges of the kernel's blocks: 62 output columns per strip, at most 46 rows
+# per band; maps of one row or column, and narrower than the blur radius
+@pytest.mark.parametrize("shape", [(1, 1, 1, 18), (2, 1, 63, 19), (1, 47, 1, 18),
+                                   (1, 45, 61, 18), (2, 46, 62, 18), (1, 47, 63, 18),
+                                   (1, 93, 125, 20), (3, 5, 9, 18)])
+def test_peaks_kernel_block_edges(cuda, shape):
+    """csrc/peaks.cu bit-equal to peak_scores_plain (card and CPU) where
+    the map ends inside, at and just past a strip or a band, and where the
+    blur folds several times. The kernel's shared memory at each radius is
+    what the wrapper's budget says."""
+    import ctypes
+
+    from tpupose_torch.decode.peaks import gaussian_blur
+    from tpupose_torch.ops import peaks as peaks_mod
+
+    noise = torch.from_numpy(
+        np.random.default_rng(sum(shape)).normal(size=shape).astype(np.float32))
+    field = (gaussian_blur(noise, 1.5) * 3.0).to(cuda)
+    before = peaks_mod.KERNEL.launches
+    got = peaks_mod.peak_scores(field, 18, 3.0, 0.1)
+    assert peaks_mod.KERNEL.launches == before + 1
+    want = peaks_mod.peak_scores_plain(field, 18, 3.0, 0.1)
+    assert got.shape == (shape[0], 18, shape[1] * shape[2])
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), peaks_mod.peak_scores_plain(field.cpu(), 18, 3.0, 0.1))
+    smem = peaks_mod.KERNEL.entry("tp_peaks_smem", [ctypes.c_int])
+    assert [smem(r) for r in range(17)] == [peaks_mod.smem_bytes(r) for r in range(17)]
 
 
 def test_fullres_decode_on_cuda_as_on_cpu(cuda):

@@ -373,3 +373,189 @@ def test_sample_staged_bytes(hw, scales, fits):
     table = len(sizes) * (sum(hw) + 4) * (4 * 4 + 4 * 2)
     assert need == sum(m[0, :, :, :2].numel() * 4 for m in maps) + table + 32
     assert (need <= 227 * 1024) == fits
+
+
+# --- host-side code of the redesigned peak kernels: band tables, budgets ----
+
+
+def _pyramid_shapes(hw, scales):
+    sizes = scale_sizes(*hw, scales, 368, 8)
+    return tuple((ph // 8, pw // 8, rh, rw) for rh, rw, ph, pw in sizes)
+
+
+@pytest.mark.parametrize("hw,scales", [((368, 368), (0.5, 1.0, 1.5, 2.0)),
+                                       ((368, 368), (1.0,)),
+                                       ((496, 656), (0.5, 1.0, 1.5, 2.0))])
+def test_pyramid_band_tables_are_exact(hw, scales):
+    """Each scale's band tables, scattered back, give chain_matrices' f32
+    Wy, WxT, Ay and BxT entry for entry (so no non-zero entry lies outside
+    a band); starts never decrease and every run fits its axis. At the
+    4-scale pyramid geometry the blurred operators are 4/5/7/8 wide."""
+    from tpupose_torch.decode.scalespace import chain_matrices
+    from tpupose_torch.ops import pyramid_peaks as pp
+
+    shapes = _pyramid_shapes(hw, scales)
+    tables = pp.bands(shapes, hw, 3.0)
+    for tab, mats in zip(tables, chain_matrices(shapes, hw, 3.0)):
+        for name, mat in zip(("wy", "wx", "ay", "bx"), mats):
+            start, coef = tab[name]
+            width = coef.shape[0]
+            assert start.dtype == np.int32 and coef.dtype == np.float32
+            assert (np.diff(start) >= 0).all() and start.min() >= 0
+            assert start.max() + width <= mat.shape[1]
+            back = np.zeros_like(mat)
+            rows = np.arange(mat.shape[0])
+            for k in range(width):
+                back[rows, start + k] = coef[k]
+            np.testing.assert_array_equal(back, mat, err_msg=name)
+            if name in ("wx", "bx"):                  # the kernel reads them as WxT, BxT
+                np.testing.assert_array_equal(back.T, np.ascontiguousarray(mat.T))
+    if len(scales) == 4 and hw == (368, 368):
+        assert [t["ay"][1].shape[0] for t in tables] == [4, 5, 7, 8]
+        assert [t["bx"][1].shape[0] for t in tables] == [4, 5, 7, 8]
+
+
+def _fma(a, b, c):
+    """A multiply-add rounded once into f32, as an FMA with f32 operands
+    whose exact product f64 holds (0 * x + c == c for every finite x)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def test_pyramid_banded_arithmetic_bit_equal_to_dense():
+    """The kernel's arithmetic emulated in torch on the CPU: per block of
+    16 rows the left product over the low-res rows the block reaches (zero
+    coefficients outside each row's band), the right product over each
+    column's band, the average from the 2-tap bands; against the dense
+    sums of the first kernel (every low-res row and column, in order).
+    Bit for bit equal, halo rows too; against the plain version the same
+    mask and values within 1e-5. 2 images at 64x64, 4 scales."""
+    from tpupose_torch.decode.peaks import masked_scores
+    from tpupose_torch.decode.scalespace import chain_matrices
+    from tpupose_torch.ops import pyramid_peaks as pp
+
+    h = w = 64
+    sizes = scale_sizes(h, w, (0.5, 1.0, 1.5, 2.0), 64, 8)
+    geoms = [s[:2] for s in sizes]
+    maps = [torch.from_numpy(m[..., :18]).permute(0, 3, 1, 2)      # (B, C, Hl, Wl)
+            for m in _low_maps(np.random.default_rng(4), sizes, 19, 2)]
+    shapes = tuple((ph // 8, pw // 8, rh, rw) for rh, rw, ph, pw in sizes)
+    inv_n = torch.tensor(1.0 / len(maps))
+    tables = pp.bands(shapes, (h, w), 3.0)
+    rows = 16
+    dense, banded = {}, {}
+    for key in ("avg", "smooth"):
+        dense[key] = torch.zeros((2, 18, h, w))
+        banded[key] = torch.zeros((2, 18, h, w))
+    for m, (wy, wx, ay, bx), tab in zip(maps, chain_matrices(shapes, (h, w), 3.0), tables):
+        hl, wl = m.shape[2:]
+        for key, left, right in (("avg", wy, wx), ("smooth", ay, bx)):
+            lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+            lp = torch.zeros((2, 18, h, wl))
+            for i in range(hl):
+                lp = _fma(lt[:, i][:, None], m[:, :, i][:, :, None, :], lp)
+            part = torch.zeros((2, 18, h, w))
+            for j in range(wl):
+                part = _fma(lp[..., j:j + 1], rt[:, j], part)
+            dense[key] = _fma(part, inv_n, dense[key])
+        # the kernel's blurred rows: one block per 14 output rows, 16 rows each
+        start, coef = (torch.from_numpy(a) for a in tab["ay"])
+        width = coef.shape[0]
+        lp_rows = {}
+        for y0 in range(0, h, rows - 2):
+            block = [y for y in range(y0 - 1, y0 + rows - 1) if 0 <= y < h]
+            first = int(start[block[0]])
+            reach = range(first, int(start[block[-1]]) + width)
+            assert len(reach) <= tab["hcap"]
+            acc = torch.zeros((2, 18, len(block), wl))
+            for i in reach:
+                k = i - start[block]
+                a = torch.where((k >= 0) & (k < width),
+                                coef[k.clamp(0, width - 1), torch.as_tensor(block)], 0.0)
+                acc = _fma(a[:, None], m[:, :, i][:, :, None, :], acc)
+            for n, y in enumerate(block):
+                if y in lp_rows:                        # a halo row of the block before
+                    assert torch.equal(lp_rows[y], acc[:, :, n]), y
+                lp_rows[y] = acc[:, :, n]
+        lp = torch.stack([lp_rows[y] for y in range(h)], dim=2)
+        cstart, ccoef = (torch.from_numpy(a) for a in tab["bx"])
+        part = torch.zeros((2, 18, h, w))
+        for k in range(ccoef.shape[0]):
+            part = _fma(lp[..., cstart + k], ccoef[k], part)
+        banded["smooth"] = _fma(part, inv_n, banded["smooth"])
+        # the average at a pixel from the 2-tap bands: rows, then columns
+        ys, yc = (torch.from_numpy(a) for a in tab["wy"])
+        xs, xc = (torch.from_numpy(a) for a in tab["wx"])
+        part = torch.zeros((2, 18, h, w))
+        for j in range(xc.shape[0]):
+            rv = torch.zeros((2, 18, h, w))
+            for k in range(yc.shape[0]):
+                mv = m[:, :, (ys + k)[:, None], (xs + j)[None, :]]
+                rv = _fma(yc[k][:, None], mv, rv)
+            part = _fma(rv, xc[j], part)
+        banded["avg"] = _fma(part, inv_n, banded["avg"])
+    for key in ("avg", "smooth"):
+        assert torch.equal(banded[key], dense[key]), key
+    got = masked_scores(banded["avg"].permute(0, 2, 3, 1), banded["smooth"].permute(0, 2, 3, 1),
+                        0.1)
+    space = TSpace([torch.from_numpy(m) for m in _low_maps(np.random.default_rng(4), sizes, 19, 2)],
+                   geoms, (h, w))
+    want = pp.pyramid_peak_scores_plain(space, 18, 3.0, 0.1)
+    mask = torch.isfinite(want)
+    assert int(mask.sum()) > 10
+    assert torch.equal(torch.isfinite(got), mask)
+    assert (got[mask] - want[mask]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("hw,scales", [((368, 368), (0.5, 1.0, 1.5, 2.0)), ((368, 368), (1.0,)),
+                                       ((496, 656), (0.5, 1.0, 1.5, 2.0)),
+                                       ((240, 960), (0.5, 1.0, 1.5))])
+def test_peak_kernel_budgets_accept_the_main_path(hw, scales):
+    """Both wrappers' shared-memory budgets at the geometries the decode
+    runs (the pyramid's tables and staged rows take 110 KB at 368x368)."""
+    from tpupose_torch.decode.peaks import gaussian_kernel1d
+    from tpupose_torch.ops import peaks as pk
+    from tpupose_torch.ops import pyramid_peaks as pp
+
+    need = pp.smem_bytes(_pyramid_shapes(hw, scales), hw, 3.0)
+    assert 0 < need <= 227 * 1024
+    if scales == (0.5, 1.0, 1.5, 2.0) and hw == (368, 368):
+        assert need == 112428
+    r = (len(gaussian_kernel1d(3.0)) - 1) // 2
+    assert r == 12 and pk.smem_bytes(r) == 4 * 16 * 18 * 98 <= 227 * 1024
+
+
+def test_peak_kernel_budgets_reject_what_a_block_cannot_hold():
+    """Eight scales up to 7x reach more low-res columns than a block's
+    shared memory holds; a blur wider than the kernel is built for has no
+    kernel. Both raise ValueError."""
+    from tpupose_torch.decode.peaks import gaussian_kernel1d
+    from tpupose_torch.ops import peaks as pk
+    from tpupose_torch.ops import pyramid_peaks as pp
+
+    with pytest.raises(ValueError, match="shared memory"):
+        pp.smem_bytes(_pyramid_shapes((368, 368), (0.5, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0)),
+                      (368, 368), 3.0)
+    with pytest.raises(ValueError, match="radii up to 16"):
+        pk.smem_bytes((len(gaussian_kernel1d(4.5)) - 1) // 2)
+    assert pk.smem_bytes(16) <= 227 * 1024
+
+
+def test_pyramid_peaks_plain_matches_pallas_interpret():
+    """The plain version against the JAX kernel itself, run in interpret
+    mode as tests/test_pallas_pyramid_peaks.py runs it: 64x64, 4 scales,
+    one image, the same peak mask and values within 1e-5."""
+    from tpupose.ops.pallas_pyramid_peaks import pyramid_peak_scores_pallas
+
+    h = w = 64
+    sizes = scale_sizes(h, w, (0.5, 1.0, 1.5, 2.0), 64, 8)
+    geoms = tuple(s[:2] for s in sizes)
+    maps = _low_maps(np.random.default_rng(11), sizes, 18, 1)
+    want = np.asarray(pyramid_peak_scores_pallas(
+        tuple(jnp.moveaxis(jnp.asarray(m[0]), -1, 0) for m in maps), geoms, (h, w),
+        sigma=3.0, thre1=0.1, interpret=True))
+    got = pyramid_peak_scores(TSpace([torch.from_numpy(m) for m in maps], geoms, (h, w)),
+                              18, 3.0, 0.1)[0].numpy()
+    mask = np.isfinite(want)
+    assert mask.sum() > 10
+    np.testing.assert_array_equal(np.isfinite(got), mask)
+    np.testing.assert_allclose(got[mask], want[mask], rtol=0, atol=1e-5)

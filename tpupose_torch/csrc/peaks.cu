@@ -19,18 +19,27 @@
 // bit-equal to the plain PyTorch version's separate multiply and add.
 //
 // What bounds it on the H100: bytes by the count (a batch of 8 at 368x368
-// needs the 78 MB of its 18 scored channels and writes 78 MB, against
-// 2 GFLOP over the two passes), but as
-// built the shared-memory reads of the two 25-tap passes are what it
-// waits for. The Pallas kernel keeps one whole padded channel resident
-// in VMEM per grid step, one image per call. Here one launch covers the batch: a
-// block owns a 32x32 output tile of one image and a group of 6 channels. It
-// stages the tile plus the blur halo plus the 1-pixel NMS halo for the
-// group from the NHWC input (the group's channels are adjacent in memory,
-// and the groups of one tile are neighbours in the grid, so the sectors
-// one group leaves unused are in L2 for the next), then per channel runs
-// the horizontal pass into shared memory, the vertical pass from it, and
-// compares and writes rows of the channel-major output.
+// reads the 78 MB of its 18 scored channels and writes 78 MB: 0.047 ms);
+// the instructions come close behind, because neither pass may fuse or
+// fold a tap: two per tap and pass, about 100 per output pixel, 0.06 ms
+// for 19.5 M outputs on 132 SMs.
+//
+// Design: one block of 18 warps per (image, strip of 62 output columns,
+// band of at most 46 output rows); warp c owns channel c, and each lane
+// two adjacent columns of the 64 the strip computes (the 62 and one NMS
+// halo column each side). The block streams the band's input rows (plus
+// the blur and NMS halo) through a ring of 16 rows in shared memory,
+// 8 rows per barrier: each row's pixels are contiguous in NHWC, so
+// consecutive threads copy consecutive words (cp.async, 4 bytes each,
+// borders folded into the source address) and the copy transposes them
+// into channel-major planes. Per input row a lane loads the 2r + 2 values
+// its two horizontal outputs need (float2 loads) and keeps the last 2r+1
+// horizontal results of each column in registers: the vertical pass reads
+// no shared memory. The row loop takes 4 rows a step, then slides that
+// window by 4 (2r moves a column). The last three blurred rows stay in
+// registers too; the NMS takes the columns beside from the neighbouring
+// lane (shuffles). The kernel is compiled for each radius up to 16 (sigma
+// below 4.125).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,17 +57,32 @@ struct PeaksParams {
   int radius;         // taps = 2 * radius + 1
   float thre1;
   float taps[kMaxTaps];
-  const float* maps;  // (B, H, W, cstride)
+  const float* maps;  // (B, H, W, cstride), contiguous
   float* out;         // (B, parts, H * W)
 };
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileH = 32;
-constexpr int kTileW = 32;
-constexpr int kGroup = 6;   // channels staged per block
+constexpr int kMaxRadius = 16;
+constexpr int kWarps = 18;               // channels per block, one warp each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 64;                // computed columns: 62 outputs + NMS halo
+constexpr int kStrip = kCols - 2;
+constexpr int kBandRows = 46;            // output rows per block, at most
+constexpr int kChunk = 8;                // input rows staged per barrier
+constexpr int kUnroll = 4;               // rows per step of the row loop (divides kChunk)
+constexpr int kRing = 2 * kChunk;
 constexpr size_t kSmemLimit = 227 * 1024;
+
+// floats per staged channel row: the strip and its blur halo, rounded up to
+// 2 mod 32, so that the 18 planes of one column fall into distinct bank pairs
+__host__ __device__ constexpr int row_pitch(int radius) {
+  return (kCols + 2 * radius - 2 + 31) / 32 * 32 + 2;
+}
+
+__host__ __device__ constexpr size_t smem_bytes(int radius) {
+  return sizeof(float) * kRing * kWarps * row_pitch(radius);
+}
 
 // index of the symmetric (edge-repeating) extension of an axis of length n
 __device__ __forceinline__ int fold(int j, int n) {
@@ -68,100 +92,176 @@ __device__ __forceinline__ int fold(int j, int n) {
   return m < n ? m : period - 1 - m;
 }
 
-__host__ __device__ inline size_t smem_floats(int radius) {
-  const int in_h = kTileH + 2 + 2 * radius, in_w = kTileW + 2 + 2 * radius;
-  return static_cast<size_t>(kGroup) * in_h * in_w + in_h * (kTileW + 2) +
-         (kTileH + 2) * (kTileW + 2);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(src));
 }
 
-__global__ void __launch_bounds__(kThreads) peaks_kernel(PeaksParams p) {
-  extern __shared__ float smem[];
-  const int r = p.radius, ntaps = 2 * r + 1;
-  const int in_h = kTileH + 2 + 2 * r, in_w = kTileW + 2 + 2 * r;
-  const int bl_h = kTileH + 2, bl_w = kTileW + 2;   // tile + NMS halo
-  float* s_in = smem;                           // kGroup x in_h x in_w
-  float* s_hb = s_in + kGroup * in_h * in_w;    // in_h x bl_w
-  float* s_sm = s_hb + in_h * bl_w;             // bl_h x bl_w
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-  const int tid = threadIdx.x;
-  const int n_groups = (p.parts + kGroup - 1) / kGroup;
-  const int c0 = (blockIdx.x % n_groups) * kGroup;
-  const int nc = min(kGroup, p.parts - c0);
-  const int x0 = (blockIdx.x / n_groups) * kTileW;
-  const int y0 = blockIdx.y * kTileH;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// input rows j0 .. j0 + kChunk - 1 (of n_in) into their slots of the ring: the
+// same (column, channel) slots of every row
+template <int kSlots, int kPitch>
+__device__ __forceinline__ void stage_rows(float* s_in, const float* img, const PeaksParams& p,
+                                           int first_row, int j0, int n_in,
+                                           const int (&src_off)[kSlots],
+                                           const int (&dst_off)[kSlots]) {
+  for (int j = j0; j < min(j0 + kChunk, n_in); ++j) {
+    const float* row = img + static_cast<size_t>(fold(first_row + j, p.h)) * p.w * p.cstride;
+    float* dst = s_in + (j % kRing) * kWarps * kPitch;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k)
+      if (src_off[k] >= 0) cp_async4(dst + dst_off[k], row + src_off[k]);
+  }
+  cp_async_commit();
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1) peaks_kernel(const __grid_constant__ PeaksParams p) {
+  constexpr int T = 2 * R + 1;
+  constexpr int kIn = kCols + 2 * R;   // staged columns
+  constexpr int kPitch = row_pitch(R);
+  constexpr int kSlots = (kWarps * kIn + kThreads - 1) / kThreads;
+  extern __shared__ __align__(16) float s_in[];   // [ring row][channel][kPitch]
+
+  const int tid = threadIdx.x, lane = tid & 31, c = tid >> 5;
+  const int n_strips = (p.w + kStrip - 1) / kStrip;
+  const int c0 = blockIdx.x / n_strips * kWarps, nc = min(kWarps, p.parts - c0);
+  const int x0 = blockIdx.x % n_strips * kStrip;
+  const int band = (p.h + gridDim.y - 1) / gridDim.y;
+  const int y0 = blockIdx.y * band, rows = min(band, p.h - y0);
   const int b = blockIdx.z;
+  if (rows <= 0) return;   // the whole block: no barrier is pending
+  const int n_in = rows + 2 + 2 * R;   // blurred rows y0-1 .. y0+rows, with the blur halo
 
-  // stage the group's input window, borders folded
+  // each thread copies the same (column, channel) slots of every staged row
   const float* img = p.maps + static_cast<size_t>(b) * p.h * p.w * p.cstride;
-  for (int i = tid; i < in_h * in_w * nc; i += kThreads) {
-    const int c = i % nc, pix = i / nc;
-    const int col = pix % in_w, row = pix / in_w;
-    const int gy = fold(y0 - 1 - r + row, p.h);
-    const int gx = fold(x0 - 1 - r + col, p.w);
-    s_in[(c * in_h + row) * in_w + col] =
-        img[(static_cast<size_t>(gy) * p.w + gx) * p.cstride + c0 + c];
+  int src_off[kSlots], dst_off[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int i = tid + k * kThreads, col = i / nc;
+    src_off[k] = -1;
+    if (col < kIn) {
+      src_off[k] = fold(x0 - 1 - R + col, p.w) * p.cstride + c0 + i % nc;
+      dst_off[k] = i % nc * kPitch + col;
+    }
   }
-  __syncthreads();
+  const int cc = 2 * lane;                 // computed columns cc, cc + 1
+  const int xa = x0 - 1 + cc, xb = xa + 1;
+  const bool in_a = xa >= 0 && xa < p.w, in_b = xb < p.w;
+  const bool out_a = cc >= 1 && xa < p.w, out_b = cc + 1 <= kStrip && xb < p.w;
+  const bool scored = c < nc;
+  float* out = p.out + (static_cast<size_t>(b) * p.parts + c0 + c) * p.h * p.w;
+  const float* x_at = img + c0 + c;
+  // horizontal results of rows j - T + 1 .. j + kUnroll - 1 per column: a
+  // group of kUnroll rows writes the last kUnroll, then the window slides
+  float wa[T + kUnroll - 1], wb[T + kUnroll - 1];
+  float a2 = 0.f, a1 = 0.f, b2 = 0.f, b1 = 0.f;   // blurred rows q-2, q-1
 
-  for (int c = 0; c < nc; ++c) {
-    const float* sc = s_in + c * in_h * in_w;
-    // horizontal pass: columns x0-1 .. x0+kTileW of every staged row
-    for (int i = tid; i < in_h * bl_w; i += kThreads) {
-      const float* src = sc + (i / bl_w) * in_w + i % bl_w;
-      float acc = __fmul_rn(p.taps[0], src[0]);
-      for (int k = 1; k < ntaps; ++k) acc = __fadd_rn(acc, __fmul_rn(p.taps[k], src[k]));
-      s_hb[i] = acc;
+  stage_rows<kSlots, kPitch>(s_in, img, p, y0 - 1 - R, 0, n_in, src_off, dst_off);
+  for (int jj = 0; jj < n_in; jj += kUnroll) {
+    if (jj % kChunk == 0) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (jj + kChunk < n_in)
+        stage_rows<kSlots, kPitch>(s_in, img, p, y0 - 1 - R, jj + kChunk, n_in, src_off, dst_off);
     }
-    __syncthreads();
-    // vertical pass; outside the map the NMS field is zero
-    for (int i = tid; i < bl_h * bl_w; i += kThreads) {
-      const int row = i / bl_w, col = i % bl_w;
-      const int gy = y0 - 1 + row, gx = x0 - 1 + col;
-      float v = 0.f;
-      if (gy >= 0 && gy < p.h && gx >= 0 && gx < p.w) {
-        const float* src = s_hb + i;
-        v = __fmul_rn(p.taps[0], src[0]);
-        for (int k = 1; k < ntaps; ++k) v = __fadd_rn(v, __fmul_rn(p.taps[k], src[k * bl_w]));
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = jj + u;
+      if (j < n_in) {
+        // horizontal pass of input row j at the two columns
+        const float2* src =
+            reinterpret_cast<const float2*>(s_in + ((j % kRing) * kWarps + c) * kPitch + cc);
+        float v[2 * R + 2];
+#pragma unroll
+        for (int k = 0; k <= R; ++k) {
+          const float2 t = src[k];
+          v[2 * k] = t.x;
+          v[2 * k + 1] = t.y;
+        }
+        float ha = __fmul_rn(p.taps[0], v[0]), hb = __fmul_rn(p.taps[0], v[1]);
+#pragma unroll
+        for (int k = 1; k < T; ++k) {
+          ha = __fadd_rn(ha, __fmul_rn(p.taps[k], v[k]));
+          hb = __fadd_rn(hb, __fmul_rn(p.taps[k], v[k + 1]));
+        }
+        wa[T - 1 + u] = ha;
+        wb[T - 1 + u] = hb;
+        if (j >= 2 * R) {
+          // vertical pass: blurred row q = j - 2R from horizontal rows q .. j
+          float ma = __fmul_rn(p.taps[0], wa[u]), mb = __fmul_rn(p.taps[0], wb[u]);
+#pragma unroll
+          for (int k = 1; k < T; ++k) {
+            ma = __fadd_rn(ma, __fmul_rn(p.taps[k], wa[u + k]));
+            mb = __fadd_rn(mb, __fmul_rn(p.taps[k], wb[u + k]));
+          }
+          const int q = j - 2 * R, y = y0 - 1 + q;
+          const bool row_in = y >= 0 && y < p.h;   // the NMS reads zero outside
+          if (!row_in || !in_a) ma = 0.f;
+          if (!row_in || !in_b) mb = 0.f;
+          if (q >= 2) {
+            // NMS of row y - 1: the column left of a and right of b from the
+            // neighbouring lanes
+            const float left = __shfl_up_sync(0xffffffffu, b1, 1);
+            const float right = __shfl_down_sync(0xffffffffu, a1, 1);
+            if (scored) {
+              const size_t at = static_cast<size_t>(y - 1) * p.w;
+              const bool pa = a1 >= a2 && a1 >= ma && a1 >= left && a1 >= b1 && a1 > p.thre1;
+              const bool pb = b1 >= b2 && b1 >= mb && b1 >= a1 && b1 >= right && b1 > p.thre1;
+              if (out_a) out[at + xa] = pa ? __ldg(x_at + (at + xa) * p.cstride) : -INFINITY;
+              if (out_b) out[at + xb] = pb ? __ldg(x_at + (at + xb) * p.cstride) : -INFINITY;
+            }
+          }
+          a2 = a1;
+          a1 = ma;
+          b2 = b1;
+          b1 = mb;
+        }
       }
-      s_sm[i] = v;
     }
-    __syncthreads();
-    // NMS + threshold; the next channel's passes rewrite s_hb before its
-    // first barrier and s_sm after it, so no barrier is needed here
-    float* out = p.out + (static_cast<size_t>(b) * p.parts + c0 + c) * p.h * p.w;
-    for (int i = tid; i < kTileH * kTileW; i += kThreads) {
-      const int row = i / kTileW, col = i % kTileW;
-      const int gy = y0 + row, gx = x0 + col;
-      if (gy < p.h && gx < p.w) {
-        const float* q = s_sm + (row + 1) * bl_w + col + 1;
-        const float sm = q[0];
-        const bool peak = sm >= q[-bl_w] && sm >= q[bl_w] && sm >= q[-1] && sm >= q[1] &&
-                          sm > p.thre1;
-        out[static_cast<size_t>(gy) * p.w + gx] =
-            peak ? sc[(row + 1 + r) * in_w + col + 1 + r] : -INFINITY;
-      }
+#pragma unroll
+    for (int k = 0; k < T - 1; ++k) {
+      wa[k] = wa[k + kUnroll];
+      wb[k] = wb[k + kUnroll];
     }
   }
+}
+
+template <int R>
+cudaError_t launch(const PeaksParams& p, dim3 grid, cudaStream_t stream) {
+  if (p.radius != R) {
+    if constexpr (R > 0) return launch<R - 1>(p, grid, stream);
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_bytes(R);
+  static_assert(smem_bytes(R) <= kSmemLimit, "the ring exceeds a block's shared memory");
+  cudaError_t err = tp_allow_smem(peaks_kernel<R>, smem);
+  if (err != cudaSuccess) return err;
+  peaks_kernel<R><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// Shared memory (bytes) the kernel asks for at a radius; ops/peaks.py's
+// smem_bytes computes the same.
+extern "C" int tp_peaks_smem(int radius) { return static_cast<int>(smem_bytes(radius)); }
+
 extern "C" int tp_peaks(const PeaksParams* p, void* stream) {
   if (p->batch < 1 || p->h < 1 || p->w < 1 || p->parts < 1 || p->cstride < p->parts ||
-      p->radius < 0 || 2 * p->radius + 1 > kMaxTaps) {
+      p->radius < 0 || p->radius > kMaxRadius) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = smem_floats(p->radius) * sizeof(float);
-  const int n_groups = (p->parts + kGroup - 1) / kGroup;
-  const long long tiles_x = (p->w + kTileW - 1) / kTileW, tiles_y = (p->h + kTileH - 1) / kTileH;
-  if (smem > kSmemLimit || tiles_y > 65535 || p->batch > 65535 ||
-      tiles_x * n_groups > 2147483647LL) {
+  const long long strips = (p->w + kStrip - 1) / kStrip, groups = (p->parts + kWarps - 1) / kWarps;
+  const long long bands = (p->h + kBandRows - 1) / kBandRows;
+  if (bands > 65535 || p->batch > 65535 || strips * groups > 2147483647LL) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = tp_allow_smem(peaks_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(tiles_x * n_groups), static_cast<unsigned>(tiles_y),
-                  p->batch);
-  peaks_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(*p);
-  return cudaGetLastError();
+  const dim3 grid(static_cast<unsigned>(strips * groups), static_cast<unsigned>(bands), p->batch);
+  return launch<kMaxRadius>(*p, grid, static_cast<cudaStream_t>(stream));
 }

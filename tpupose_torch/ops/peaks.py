@@ -21,8 +21,9 @@ from tpupose_torch.decode.peaks import (
 from tpupose_torch.ops._build import CudaKernel
 
 _MAX_TAPS = 64
-_SMEM_LIMIT = 227 * 1024
-_TILE, _GROUP = 32, 6          # csrc/peaks.cu: kTileH = kTileW, kGroup
+# csrc/peaks.cu: kMaxRadius, kWarps, kCols, kBandRows, kRing (a card test holds
+# smem_bytes to the kernel's own count)
+_MAX_RADIUS, _WARPS, _COLS, _BAND_ROWS, _RING = 16, 18, 64, 46, 16
 
 
 class _Params(ctypes.Structure):
@@ -40,9 +41,15 @@ KERNEL = CudaKernel(
 )
 
 
-def _smem_bytes(radius: int) -> int:
-    side = _TILE + 2 + 2 * radius
-    return 4 * (_GROUP * side * side + side * (_TILE + 2) + (_TILE + 2) ** 2)
+def smem_bytes(radius: int) -> int:
+    """Shared memory the kernel asks for at a blur radius (a ring of input
+    rows, each channel's row padded to 2 mod 32 floats); raises
+    ``ValueError`` for a radius the kernel is not built for."""
+    if not 0 <= radius <= _MAX_RADIUS:
+        raise ValueError(f"peak_scores: blur radius {radius}; the kernel is built for radii "
+                         f"up to {_MAX_RADIUS} ({2 * _MAX_RADIUS + 1} taps)")
+    pitch = (_COLS + 2 * radius - 2 + 31) // 32 * 32 + 2
+    return 4 * _RING * _WARPS * pitch
 
 
 def peak_scores_plain(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
@@ -87,11 +94,9 @@ def peak_scores(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
         raise ValueError(f"peak_scores: unsupported device {dev}")
     taps = gaussian_kernel1d(sigma)
     r = (len(taps) - 1) // 2
-    if len(taps) > _MAX_TAPS or _smem_bytes(r) > _SMEM_LIMIT:
-        raise ValueError(f"peak_scores: sigma {sigma} needs {len(taps)} taps, more than "
-                         "the kernel's shared memory holds")
+    smem_bytes(r)
     b, h, w, c = maps.shape
-    if b > 65535 or -(-h // _TILE) > 65535:
+    if b > 65535 or -(-h // _BAND_ROWS) > 65535:
         raise ValueError(f"peak_scores: maps {tuple(maps.shape)} exceed the kernel's grid")
     x = maps.detach().to(torch.float32).contiguous()
     out = torch.empty((b, parts, h * w), dtype=torch.float32, device=dev)
