@@ -148,12 +148,15 @@ def test_pyramid_peaks_kernel_wide_image(cuda):
 
 
 # (image size, scales, batch): the 4-scale pyramid at batch 8 (the main
-# path), scale 1.0 at batch 16, the 496 x 656 bucket, a wide non-square
-# image (three column tiles), one image
+# path), scale 1.0 at batch 16, the 496 x 656 and portrait 656 x 496
+# buckets, a 720p frame, a wide non-square image (three column tiles), one
+# image
 _PYRAMID_CASES = {
     "pyramid, batch 8": ((368, 368), (0.5, 1.0, 1.5, 2.0), 8),
     "scale 1.0, batch 16": ((368, 368), (1.0,), 16),
     "bucket 496x656": ((496, 656), (0.5, 1.0, 1.5, 2.0), 2),
+    "portrait bucket 656x496": ((656, 496), (0.5, 1.0, 1.5, 2.0), 2),
+    "720p frame": ((720, 1280), (0.5, 1.0, 1.5, 2.0), 1),
     "wide 200x1200": ((200, 1200), (0.5, 1.0, 1.5), 1),
     "pyramid, batch 1": ((368, 368), (0.5, 1.0, 1.5, 2.0), 1),
 }
@@ -306,21 +309,64 @@ def test_sample_kernel_points_outside_the_image(cuda, size):
     assert (got - want).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("seed,k,density", [(0, 16, 0.1), (1, 16, 0.7), (2, 96, 0.01)])
+def _crowded_tables(cuda, n_scenes):
+    """assoc's inputs on crowded 720x1280 frames (32 people each, four
+    scales), as the scale-space decode builds them on the card."""
+    from tpupose_torch.decode import paf as paf_mod
+    from tpupose_torch.decode import peaks as peaks_mod
+    from tpupose_torch.testing import crowded_scene
+
+    cfg = InferenceConfig()
+    hw = (720, 1280)
+    sizes = image.scale_sizes(*hw, (0.5, 1.0, 1.5, 2.0), 368, 8)
+    geoms = [s[:2] for s in sizes]
+    scenes = [crowded_scene(sizes, 32, seed) for seed in range(n_scenes)]
+    heat = ScaleSpace([torch.cat([sc[0][i] for sc in scenes]).to(cuda) for i in range(4)], geoms, hw)
+    pafs = ScaleSpace([torch.cat([sc[1][i] for sc in scenes]).to(cuda) for i in range(4)], geoms, hw)
+    k = cfg.max_peaks
+    flats = pyramid_peak_scores(heat, 18, cfg.peak_sigma, cfg.thre1)
+    pk = {key: v.reshape(n_scenes, 18, k)
+          for key, v in peaks_mod.peak_tables(flats.reshape(n_scenes * 18, -1), hw[1], k).items()}
+    prior, ok, n_a, n_b = paf_mod.pair_scores(pafs, pk, cfg.mid_num, cfg.thre2,
+                                              cfg.connect_min_ratio)
+    return paf_mod.candidates(prior, ok, pk["scores"], min(512, k * k)), torch.minimum(n_a, n_b)
+
+
+@pytest.mark.parametrize("seed,k,density", [(0, 16, 0.1), (1, 16, 0.7), (2, 96, 0.01),
+                                            (3, 96, "crowd")])
 def test_assoc_kernel_bit_equal(cuda, seed, k, density):
+    """csrc/assoc.cu against assoc_plain, bit for bit: random tables and the
+    tables of three crowded 720p frames (32 people each); also its
+    scan-on-every-step path (the test entry tp_assoc_scan)."""
     from tpupose_torch.decode.paf import candidates
 
     rng = np.random.default_rng(seed)
-    prior = torch.from_numpy(rng.normal(size=(3, 19, k, k)).astype(np.float32)).to(cuda)
-    ok = torch.from_numpy(rng.random((3, 19, k, k)) < density).to(cuda)
-    limits = torch.from_numpy(rng.integers(1, k + 1, (3, 19)).astype(np.int32)).to(cuda)
-    scores = torch.from_numpy(rng.random((3, 18, k)).astype(np.float32)).to(cuda)
-    ts, ta, tb, sa, sb = candidates(prior, ok, scores, min(512, k * k))
+    if density == "crowd":
+        (ts, ta, tb, sa, sb), limits = _crowded_tables(cuda, 3)
+    else:
+        prior = torch.from_numpy(rng.normal(size=(3, 19, k, k)).astype(np.float32)).to(cuda)
+        ok = torch.from_numpy(rng.random((3, 19, k, k)) < density).to(cuda)
+        limits = torch.from_numpy(rng.integers(1, k + 1, (3, 19)).astype(np.int32)).to(cuda)
+        scores = torch.from_numpy(rng.random((3, 18, k)).astype(np.float32)).to(cuda)
+        ts, ta, tb, sa, sb = candidates(prior, ok, scores, min(512, k * k))
     got = assoc(ts, ta, tb, sa, sb, limits, k_slots=k, n_conn=k, max_people=256)
     want = assoc_plain(ts, ta, tb, sa, sb, limits, k_slots=k, n_conn=k, max_people=256)
     assert int(want["active"].sum()) > 0
     for key in want:
         assert torch.equal(got[key], want[key]), key
+    # the kernel's other way to a step's matched rows: a scan on every step
+    from tpupose_torch import topology
+    from tpupose_torch.ops import assoc as assoc_mod
+
+    scan = assoc_mod.KERNEL.entry("tp_assoc_scan", assoc_mod.KERNEL.argtypes)
+    out = {key: torch.empty_like(v) for key, v in want.items()}
+    ins = [t.contiguous() for t in (ts, ta, tb, sa, sb, limits.to(torch.int32))]
+    pairs = torch.as_tensor(topology.decode_limb_tables()[0], dtype=torch.int32).to(cuda)
+    assert scan(*(t.data_ptr() for t in ins), pairs.data_ptr(), ts.shape[0], 19, ts.shape[2], k, k,
+                256, *(out[key].data_ptr() for key in ("rows", "score", "cnt", "active", "stamp")),
+                torch.cuda.current_stream().cuda_stream) == 0
+    for key in want:
+        assert torch.equal(out[key], want[key]), key
 
 
 def test_planted_scene_decodes_on_cuda_as_on_cpu(cuda):
@@ -366,9 +412,10 @@ def test_peaks_kernel_bit_equal(cuda, shape):
     assert int(torch.isfinite(want).sum()) >= 8
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), peaks_mod.peak_scores_plain(field.cpu(), 18, 3.0, 0.1))
-    with pytest.raises(ValueError):
-        peaks_mod.peak_scores(field, 18, sigma=9.0)       # 73 taps: more than the kernel takes
-    for sigma in (0.1, 1.0, 2.0, 4.0):                      # radius 0, 4, 8, 16
+    with pytest.raises(ValueError, match="shared memory"):
+        peaks_mod.peak_scores(field, 18, sigma=13.0)      # radius 52: rings beyond a block
+    # radius 0, 4, 8, 16 (templated), 18, 24 and 50 (the generic path)
+    for sigma in (0.1, 1.0, 2.0, 4.0, 4.5, 6.0, 12.4):
         assert torch.equal(peaks_mod.peak_scores(field, 18, sigma, 0.1),
                            peaks_mod.peak_scores_plain(field, 18, sigma, 0.1)), sigma
 
@@ -398,8 +445,11 @@ def test_peaks_kernel_block_edges(cuda, shape):
     assert got.shape == (shape[0], 18, shape[1] * shape[2])
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), peaks_mod.peak_scores_plain(field.cpu(), 18, 3.0, 0.1))
+    for sigma in (4.5, 6.0):                                # the generic path, radius 18, 24
+        assert torch.equal(peaks_mod.peak_scores(field, 18, sigma, 0.1),
+                           peaks_mod.peak_scores_plain(field, 18, sigma, 0.1)), sigma
     smem = peaks_mod.KERNEL.entry("tp_peaks_smem", [ctypes.c_int])
-    assert [smem(r) for r in range(17)] == [peaks_mod.smem_bytes(r) for r in range(17)]
+    assert [smem(r) for r in range(51)] == [peaks_mod.smem_bytes(r) for r in range(51)]
 
 
 def test_fullres_decode_on_cuda_as_on_cpu(cuda):
@@ -427,18 +477,29 @@ def test_fullres_decode_on_cuda_as_on_cpu(cuda):
     assert len(to_people({k: v.numpy() for k, v in cpu.items()})) == 2
 
 
-@pytest.mark.parametrize("shape", [(10, 24, 46, 8), (3, 5, 16, 4)])
+@pytest.mark.parametrize("shape", [(10, 24, 46, 8, 12), (3, 5, 16, 4, 2), (10, 24, 46, 8, 24),
+                                   (2, 3, 200, 8, 3)])
 def test_gt_kernel(cuda, shape):
     """csrc/gt.cu against create_labels_plain: the same heat > 0 and band
-    masks, values within 1e-6 (expf against torch.exp)."""
+    masks, values within 1e-6 (expf against torch.exp). Half the persons
+    live, or all 24 with joints on and beyond the image's border; a grid of
+    200 cells (one label row a block). The kernel's shared memory is what
+    the wrapper's budget says."""
+    import ctypes
+
     from tpupose_torch.ops import gt as gt_mod
 
-    n, persons, label, stride = shape
-    rng = np.random.default_rng(n)
+    n, persons, label, stride, live = shape
+    rng = np.random.default_rng(n + live)
     j = np.full((n, persons, 18, 3), 2.0, np.float32)
-    live = persons // 2
     j[:, :live, :, :2] = rng.uniform(0, label * stride, (n, live, 18, 2))
     j[:, :live, :, 2] = rng.choice([0.0, 1.0, 2.0], (n, live, 18), p=[0.6, 0.2, 0.2])
+    if live == persons:          # joints on the border, just inside and beyond it
+        edge = rng.choice([-20.0, -0.5, 0.0, label * stride - 1.0, label * stride + 20.0],
+                          (n, live, 18))
+        on_x = rng.random((n, live, 18)) < 0.3
+        j[:, :, :, 0] = np.where(on_x, edge, j[:, :, :, 0])
+        j[:, :, :, 1] = np.where(~on_x & (rng.random((n, live, 18)) < 0.3), edge, j[:, :, :, 1])
     j[0, 1] = j[0, 0] + np.asarray([3.0, -2.0, 0.0], np.float32)
     j[-1, :, :, 2] = 2.0
     joints = torch.from_numpy(j).to(cuda)
@@ -458,6 +519,8 @@ def test_gt_kernel(cuda, shape):
     assert not got[0][-1].any() and torch.equal(got[1][-1][..., 18], mask[-1])
     zero = gt_mod.create_labels(joints, torch.zeros_like(mask), **kw)
     assert not zero[0].any() and not zero[1].any()
+    smem = gt_mod.KERNEL.entry("tp_gt_smem", [ctypes.c_int] * 3)
+    assert smem(persons, label, gt_mod.tile_rows(label)) == gt_mod.smem_bytes(persons, label)
 
 
 def test_block1_kernel_refuses_a_gradient(cuda):

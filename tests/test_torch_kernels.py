@@ -138,6 +138,37 @@ def _random_problem(seed, b, k, density):
     return prior, ok, n_a, n_b, scores
 
 
+def _crowded_problem(k):
+    """The pair-score problem of two small crowded scenes (12 people each in
+    a 184x328 frame, scale 1.0; ``testing.crowded_scene``), as the port's
+    scale-space decode builds it with K = ``k`` peak slots: prior, ok,
+    n_a, n_b (B, 19, ...) and the peak scores (B, 18, K), numpy."""
+    from tpupose_torch.decode import peaks as tpeaks
+    from tpupose_torch.ops.image import scale_sizes as t_scale_sizes
+    from tpupose_torch.testing import crowded_scene
+
+    cfg = InferenceConfig()
+    frame = (184, 328)
+    sizes = t_scale_sizes(*frame, (1.0,), 368, 8)
+    geoms = [s[:2] for s in sizes]
+    scenes = [crowded_scene(sizes, 12, seed, frame) for seed in (0, 1)]
+    heat = TSpace([torch.cat([sc[0][0] for sc in scenes])], geoms, frame)
+    pafs = TSpace([torch.cat([sc[1][0] for sc in scenes])], geoms, frame)
+    flats = pyramid_peak_scores(heat, 18, cfg.peak_sigma, cfg.thre1)
+    pk = {key: v.reshape(2, 18, k)
+          for key, v in tpeaks.peak_tables(flats.reshape(36, -1), frame[1], k).items()}
+    prior, ok, n_a, n_b = tpaf.pair_scores(pafs, pk, cfg.mid_num, cfg.thre2, cfg.connect_min_ratio)
+    return (prior.numpy(), ok.numpy(), n_a.numpy().astype(np.int32),
+            n_b.numpy().astype(np.int32), pk["scores"].numpy())
+
+
+def _problem(seed, k, density):
+    """A random problem at ``density``, or the crowded one ("crowd")."""
+    if density == "crowd":
+        return _crowded_problem(k)
+    return _random_problem(seed, 2, k, density)
+
+
 def _port_people(prior, ok, n_a, n_b, scores, k, cap, p, cfg):
     ts, ta, tb, sa, sb = tpaf.candidates(torch.from_numpy(prior), torch.from_numpy(ok),
                                          torch.from_numpy(scores), cap)
@@ -154,10 +185,14 @@ def _assert_people_equal(got, want, msg):
 
 
 @pytest.mark.parametrize("seed,k,density,p", [(0, 8, 0.15, 64), (1, 8, 0.6, 64),
-                                              (2, 16, 0.08, 64), (3, 8, 0.95, 16)])
+                                              (2, 16, 0.08, 64), (3, 8, 0.95, 16),
+                                              (4, 16, "crowd", 64)])
 def test_assoc_plain_bit_equal_to_greedy_and_assemble(seed, k, density, p):
+    """The port's assoc against the JAX package's greedy_all + assemble, on
+    random pair scores and on the pair scores of two small crowded scenes
+    (12 people each)."""
     cfg = InferenceConfig()
-    prior, ok, n_a, n_b, scores = _random_problem(seed, 2, k, density)
+    prior, ok, n_a, n_b, scores = _problem(seed, k, density)
     cap = min(512, k * k)
     _, got = _port_people(prior, ok, n_a, n_b, scores, k, cap, p, cfg)
 
@@ -171,6 +206,164 @@ def test_assoc_plain_bit_equal_to_greedy_and_assemble(seed, k, density, p):
     want = jax.device_get(jax.vmap(one)(*(jnp.asarray(a) for a in (prior, ok, n_a, n_b, scores))))
     assert np.asarray(want["valid"]).any() or seed == 0
     _assert_people_equal(got, want, f"seed={seed}")
+
+
+def _chunked_accept(ts, ta, tb, sa, sb, limits, k, n_conn):
+    """csrc/assoc.cu's phase 1 in numpy, a limb of an image at a time: 32
+    candidates a chunk, each lane tested against the used-slot sets as the
+    chunk starts, then the lowest live lane accepted, its slots marked and
+    the later lanes that share one of them dropped, until none is live or
+    the limit is reached; the walk ends with the chunk that holds the first
+    -inf. Returns greedy_accept's tables."""
+    from tpupose_torch import topology as ttop
+
+    b, n_limbs, cap = ts.shape
+    pairs = ttop.decode_limb_tables()[0]
+    out = {key: np.zeros((b, n_limbs, n_conn), dtype)
+           for key, dtype in (("pa", np.int32), ("pb", np.int32), ("cs", np.float32),
+                              ("sa", np.float32), ("sb", np.float32))}
+    out["n_valid"] = np.zeros((b, n_limbs), np.int64)
+    for i in range(b):
+        for l in range(n_limbs):
+            used_a, used_b = np.zeros(k, bool), np.zeros(k, bool)
+            n, limit, done, t0 = 0, int(limits[i, l]), int(limits[i, l]) <= 0, 0
+            while t0 < cap and not done:
+                t = np.arange(t0, min(t0 + 32, cap))
+                neg = np.flatnonzero(ts[i, l, t] == -np.inf)
+                live = np.isfinite(ts[i, l, t])
+                if len(neg):
+                    live[neg[0]:] = False
+                live &= ~used_a[ta[i, l, t]] & ~used_b[tb[i, l, t]]
+                while live.any():
+                    src = int(np.flatnonzero(live)[0])
+                    a, bb = ta[i, l, t[src]], tb[i, l, t[src]]
+                    if n < n_conn:
+                        out["pa"][i, l, n] = pairs[l, 0] * k + a
+                        out["pb"][i, l, n] = pairs[l, 1] * k + bb
+                        for key, table in (("cs", ts), ("sa", sa), ("sb", sb)):
+                            out[key][i, l, n] = table[i, l, t[src]]
+                    used_a[a] = used_b[bb] = True
+                    n += 1
+                    if n >= limit:
+                        done = True
+                        break
+                    live &= (np.arange(len(t)) > src) & (ta[i, l, t] != a) & (tb[i, l, t] != bb)
+                done = done or len(neg) > 0
+                t0 += 32
+            out["n_valid"][i, l] = min(n, n_conn)
+    return out
+
+
+@pytest.mark.parametrize("seed,k,density", [(5, 8, 0.3), (6, 16, 0.05), (7, 96, 0.02),
+                                            (8, 16, "crowd")])
+def test_assoc_chunked_phase1_bit_equal_to_greedy_accept(seed, k, density):
+    """The kernel's phase-1 order (chunks of 32, accepts resolved within a
+    chunk) against the port's greedy_accept, which walks one candidate at
+    a time: the same tables bit for bit, with limits below, at and above
+    the candidates, on random pair scores (K = 8, 16, 96; at 96 the 512
+    candidates make 16 chunks) and on two crowded scenes."""
+    prior, ok, n_a, n_b, scores = _problem(seed, k, density)
+    cap = min(512, k * k)
+    ts, ta, tb, sa, sb = tpaf.candidates(torch.from_numpy(prior), torch.from_numpy(ok),
+                                         torch.from_numpy(scores), cap)
+    limits = torch.minimum(torch.from_numpy(n_a), torch.from_numpy(n_b))
+    limits[0, :3] = torch.tensor([0, 1, k])
+    n_conn = max(k // 2, 1)
+    want = tpaf.greedy_accept(ts, ta, tb, sa, sb, limits, k, n_conn)
+    got = _chunked_accept(*(t.numpy() for t in (ts, ta, tb, sa, sb, limits)), k, n_conn)
+    assert int(want["n_valid"].sum()) > 0
+    for key, v in want.items():
+        np.testing.assert_array_equal(got[key], v.numpy(), err_msg=key)
+
+
+_DUP = -2
+
+
+def _indexed_assemble(conns, k, p, scan_always):
+    """csrc/assoc.cu's phase 2 in numpy, an image at a time: a step finds
+    its matched rows through the index from peaks to rows, or by a scan
+    where the index marks one of its peaks as held by several rows (every
+    step with ``scan_always``), and keeps the index as the kernel keeps it.
+    Returns assemble's raw table."""
+    from tpupose_torch import topology as ttop
+
+    pairs = ttop.decode_limb_tables()[0]
+    b, n_limbs, _ = conns["pa"].shape
+    out = {"rows": np.full((b, p, 18), -1, np.int32), "score": np.zeros((b, p), np.float32),
+           "cnt": np.zeros((b, p), np.int32), "active": np.zeros((b, p), bool),
+           "stamp": np.full((b, p), 1 << 30, np.int32)}
+    f32 = np.float32
+    for i in range(b):
+        rows, score, cnt, act, stamp = (out[key][i] for key in
+                                        ("rows", "score", "cnt", "active", "stamp"))
+        idx = np.full(18 * k, -1, np.int64)
+        seeded = next_stamp = 0
+        for l in range(n_limbs):
+            ap, bp = pairs[l]
+            for q in range(int(conns["n_valid"][i, l])):
+                pa, pb = int(conns["pa"][i, l, q]), int(conns["pb"][i, l, q])
+                cs, sa, sb = (f32(conns[key][i, l, q]) for key in ("cs", "sa", "sb"))
+                ra, rb = idx[pa], idx[pb]
+                if not scan_always and ra != _DUP and rb != _DUP:
+                    match = sorted({r for r in (ra, rb) if r >= 0})
+                else:
+                    match = [j for j in range(seeded)
+                             if act[j] and (rows[j, ap] == pa or rows[j, bp] == pb)]
+                if len(match) == 2 and stamp[match[1]] < stamp[match[0]]:
+                    match = match[::-1]
+                if len(match) in (1, 2):
+                    j1, old = match[0], rows[match[0], bp]
+                    merge = len(match) == 2 and not ((rows[j1] >= 0) & (rows[match[1]] >= 0)).any()
+                    if merge:
+                        j2 = match[1]
+                        for t in np.flatnonzero(rows[j2] >= 0):
+                            rows[j1, t] = rows[j2, t]
+                            if idx[rows[j2, t]] == j2:
+                                idx[rows[j2, t]] = j1
+                        rows[j2] = -1
+                        cnt[j1] += cnt[j2]
+                        score[j1] = f32(score[j1] + f32(score[j2] + cs))
+                        cnt[j2], score[j2], act[j2] = 0, 0.0, False
+                    elif len(match) == 2 or old != pb:
+                        rows[j1, bp] = pb
+                        cnt[j1] += 1
+                        score[j1] = f32(score[j1] + f32(sb + cs))
+                        if old != pb:
+                            if old >= 0 and idx[old] == j1:
+                                idx[old] = -1
+                            held = len(match) == 2 and rows[match[1], bp] == pb
+                            idx[pb] = _DUP if held else j1
+                elif not match and l < 17:
+                    j = min([j for j in range(seeded) if not act[j]] + [seeded])
+                    if j < p:
+                        rows[j] = -1
+                        rows[j, ap], rows[j, bp] = pa, pb
+                        cnt[j], score[j], act[j] = 2, f32(f32(sa + sb) + cs), True
+                        stamp[j], next_stamp = next_stamp, next_stamp + 1
+                        seeded = max(seeded, j + 1)
+                        idx[pa] = idx[pb] = j
+    return out
+
+
+@pytest.mark.parametrize("seed,k,density,p", [(9, 8, 0.6, 64), (10, 96, 0.02, 256),
+                                              (11, 8, 0.99, 8), (12, 16, "crowd", 64)])
+def test_assoc_indexed_phase2_bit_equal_to_assemble(seed, k, density, p):
+    """The kernel's phase-2 order (matched rows from the index, a scan
+    where a peak sits in several rows) and its scan on every step, both
+    against the port's assemble: the same raw table bit for bit, on random
+    pair scores (a full table of 8 rows too) and on two crowded scenes."""
+    prior, ok, n_a, n_b, scores = _problem(seed, k, density)
+    cap = min(512, k * k)
+    ts, ta, tb, sa, sb = tpaf.candidates(torch.from_numpy(prior), torch.from_numpy(ok),
+                                         torch.from_numpy(scores), cap)
+    limits = torch.minimum(torch.from_numpy(n_a), torch.from_numpy(n_b))
+    conns = tpaf.greedy_accept(ts, ta, tb, sa, sb, limits, k, k)
+    want = tasm.assemble(conns, p)
+    assert int(want["active"].sum()) > 0
+    for scan_always in (False, True):
+        got = _indexed_assemble({key: v.numpy() for key, v in conns.items()}, k, p, scan_always)
+        for key, v in want.items():
+            np.testing.assert_array_equal(got[key], v.numpy(), err_msg=f"{key} {scan_always}")
 
 
 def test_assoc_plain_bit_equal_to_pallas_interpret():
@@ -385,11 +578,14 @@ def _pyramid_shapes(hw, scales):
 
 @pytest.mark.parametrize("hw,scales", [((368, 368), (0.5, 1.0, 1.5, 2.0)),
                                        ((368, 368), (1.0,)),
-                                       ((496, 656), (0.5, 1.0, 1.5, 2.0))])
+                                       ((496, 656), (0.5, 1.0, 1.5, 2.0)),
+                                       ((656, 496), (0.5, 1.0, 1.5, 2.0))])
 def test_pyramid_band_tables_are_exact(hw, scales):
     """Each scale's band tables, scattered back, give chain_matrices' f32
     Wy, WxT, Ay and BxT entry for entry (so no non-zero entry lies outside
-    a band); starts never decrease and every run fits its axis. At the
+    a band); starts never decrease and every run fits its axis; each padded
+    run of the plain chain lies inside the blurred run of its row (or
+    column), so a block that stages the blurred runs holds it. At the
     4-scale pyramid geometry the blurred operators are 4/5/7/8 wide."""
     from tpupose_torch.decode.scalespace import chain_matrices
     from tpupose_torch.ops import pyramid_peaks as pp
@@ -410,6 +606,9 @@ def test_pyramid_band_tables_are_exact(hw, scales):
             np.testing.assert_array_equal(back, mat, err_msg=name)
             if name in ("wx", "bx"):                  # the kernel reads them as WxT, BxT
                 np.testing.assert_array_equal(back.T, np.ascontiguousarray(mat.T))
+        for inner, outer in (("wy", "ay"), ("wx", "bx")):
+            (i_start, i_coef), (o_start, o_coef) = tab[inner], tab[outer]
+            assert (i_start >= o_start).all() and (i_start + len(i_coef) <= o_start + len(o_coef)).all()
     if len(scales) == 4 and hw == (368, 368):
         assert [t["ay"][1].shape[0] for t in tables] == [4, 5, 7, 8]
         assert [t["bx"][1].shape[0] for t in tables] == [4, 5, 7, 8]
@@ -421,97 +620,129 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def test_pyramid_banded_arithmetic_bit_equal_to_dense():
+def _staged_left_products(m, tab, left, h, width_of=None):
+    """The kernel's left products of one scale for every output row: per
+    block of 16 rows (14 and a halo row each side) the low-res rows it
+    stages (the reach of its blurred runs), summed in index order with the
+    row's coefficient where the row's run of ``left`` covers the low-res
+    row and zero elsewhere. Asserts that the loop of ``left`` stays inside
+    the staged rows and that a halo row equals the block before's."""
+    from tpupose_torch.ops import pyramid_peaks as pp
+
+    start, coef = (torch.from_numpy(a) for a in tab[left])
+    a_start, a_width = tab["ay"][0], len(tab["ay"][1])
+    width, wl = coef.shape[0], m.shape[-1]
+    lp_rows = {}
+    for y0 in range(0, h, pp._OUT_ROWS):
+        block = [y for y in range(y0 - 1, y0 + pp._OUT_ROWS + 1) if 0 <= y < h]
+        staged = range(int(a_start[block[0]]), int(a_start[block[-1]]) + a_width)
+        assert len(staged) <= tab["hcap"]
+        reach = range(int(start[block[0]]), int(start[block[-1]]) + width)
+        assert staged.start <= reach.start and reach.stop <= staged.stop, (left, y0)
+        acc = torch.zeros((*m.shape[:2], len(block), wl))
+        for i in reach:
+            k = i - start[block]
+            a = torch.where((k >= 0) & (k < width),
+                            coef[k.clamp(0, width - 1), torch.as_tensor(block)], 0.0)
+            acc = _fma(a[:, None], m[:, :, i][:, :, None, :], acc)
+        for n, y in enumerate(block):
+            if y in lp_rows:                        # a halo row of the block before
+                assert torch.equal(lp_rows[y], acc[:, :, n]), y
+            lp_rows[y] = acc[:, :, n]
+    return torch.stack([lp_rows[y] for y in range(h)], dim=2)
+
+
+def _staged_columns(tab, right, w):
+    """Per output column, its run of ``right`` as offsets into the low-res
+    columns its tile of 382 stages (the reach of the blurred runs);
+    asserts that every run lies inside."""
+    from tpupose_torch.ops import pyramid_peaks as pp
+
+    start, width = tab[right][0], len(tab[right][1])
+    b_start, b_width = tab["bx"][0], len(tab["bx"][1])
+    for x0 in range(0, w, pp._COL_TILE):
+        xa, xb = max(x0 - 1, 0), min(x0 + pp._COL_TILE, w - 1)
+        staged = range(int(b_start[xa]), int(b_start[xb]) + b_width)
+        assert len(staged) <= tab["wcap"]
+        cols = np.arange(xa, xb + 1)
+        assert (start[cols] >= staged.start).all(), (right, x0)
+        assert (start[cols] + width <= staged.stop).all(), (right, x0)
+
+
+@pytest.mark.parametrize("hw,boxsize,batch,parts", [((64, 64), 64, 2, 18), ((656, 496), 32, 1, 3)])
+def test_pyramid_banded_arithmetic_bit_equal_to_dense(hw, boxsize, batch, parts):
     """The kernel's arithmetic emulated in torch on the CPU: per block of
-    16 rows the left product over the low-res rows the block reaches (zero
-    coefficients outside each row's band), the right product over each
-    column's band, the average from the 2-tap bands; against the dense
-    sums of the first kernel (every low-res row and column, in order).
-    Bit for bit equal, halo rows too; against the plain version the same
-    mask and values within 1e-5. 2 images at 64x64, 4 scales."""
+    16 rows the left products (blurred and plain chain) over the low-res
+    rows the block stages, zero coefficients outside each row's band; the
+    right product over each column's band; the average from the plain
+    chain's left products over each column's 2- or 3-tap band; against the
+    dense sums of the first kernel (every low-res row and column, in
+    order). Bit for bit equal, halo rows too; against the plain version the
+    same mask and values within 1e-5. 2 images at 64x64 and a tall 656x496
+    image (the bucket canvas, at boxsize 32), 4 scales: at 656x496 the
+    plain chain's runs, padded on the right, once reached past the staged
+    rows (the emulation asserts that every run lies inside them)."""
     from tpupose_torch.decode.peaks import masked_scores
     from tpupose_torch.decode.scalespace import chain_matrices
     from tpupose_torch.ops import pyramid_peaks as pp
 
-    h = w = 64
-    sizes = scale_sizes(h, w, (0.5, 1.0, 1.5, 2.0), 64, 8)
+    h, w = hw
+    sizes = scale_sizes(h, w, (0.5, 1.0, 1.5, 2.0), boxsize, 8)
     geoms = [s[:2] for s in sizes]
-    maps = [torch.from_numpy(m[..., :18]).permute(0, 3, 1, 2)      # (B, C, Hl, Wl)
-            for m in _low_maps(np.random.default_rng(4), sizes, 19, 2)]
+    low = _low_maps(np.random.default_rng(4), sizes, 19, batch)
+    maps = [torch.from_numpy(m[..., :parts]).permute(0, 3, 1, 2) for m in low]  # (B, C, Hl, Wl)
     shapes = tuple((ph // 8, pw // 8, rh, rw) for rh, rw, ph, pw in sizes)
     inv_n = torch.tensor(1.0 / len(maps))
     tables = pp.bands(shapes, (h, w), 3.0)
-    rows = 16
     dense, banded = {}, {}
     for key in ("avg", "smooth"):
-        dense[key] = torch.zeros((2, 18, h, w))
-        banded[key] = torch.zeros((2, 18, h, w))
+        dense[key] = torch.zeros((batch, parts, h, w))
+        banded[key] = torch.zeros((batch, parts, h, w))
     for m, (wy, wx, ay, bx), tab in zip(maps, chain_matrices(shapes, (h, w), 3.0), tables):
         hl, wl = m.shape[2:]
         for key, left, right in (("avg", wy, wx), ("smooth", ay, bx)):
             lt, rt = torch.from_numpy(left), torch.from_numpy(right)
-            lp = torch.zeros((2, 18, h, wl))
+            lp = torch.zeros((batch, parts, h, wl))
             for i in range(hl):
                 lp = _fma(lt[:, i][:, None], m[:, :, i][:, :, None, :], lp)
-            part = torch.zeros((2, 18, h, w))
+            part = torch.zeros((batch, parts, h, w))
             for j in range(wl):
                 part = _fma(lp[..., j:j + 1], rt[:, j], part)
             dense[key] = _fma(part, inv_n, dense[key])
-        # the kernel's blurred rows: one block per 14 output rows, 16 rows each
-        start, coef = (torch.from_numpy(a) for a in tab["ay"])
-        width = coef.shape[0]
-        lp_rows = {}
-        for y0 in range(0, h, rows - 2):
-            block = [y for y in range(y0 - 1, y0 + rows - 1) if 0 <= y < h]
-            first = int(start[block[0]])
-            reach = range(first, int(start[block[-1]]) + width)
-            assert len(reach) <= tab["hcap"]
-            acc = torch.zeros((2, 18, len(block), wl))
-            for i in reach:
-                k = i - start[block]
-                a = torch.where((k >= 0) & (k < width),
-                                coef[k.clamp(0, width - 1), torch.as_tensor(block)], 0.0)
-                acc = _fma(a[:, None], m[:, :, i][:, :, None, :], acc)
-            for n, y in enumerate(block):
-                if y in lp_rows:                        # a halo row of the block before
-                    assert torch.equal(lp_rows[y], acc[:, :, n]), y
-                lp_rows[y] = acc[:, :, n]
-        lp = torch.stack([lp_rows[y] for y in range(h)], dim=2)
-        cstart, ccoef = (torch.from_numpy(a) for a in tab["bx"])
-        part = torch.zeros((2, 18, h, w))
-        for k in range(ccoef.shape[0]):
-            part = _fma(lp[..., cstart + k], ccoef[k], part)
-        banded["smooth"] = _fma(part, inv_n, banded["smooth"])
-        # the average at a pixel from the 2-tap bands: rows, then columns
-        ys, yc = (torch.from_numpy(a) for a in tab["wy"])
-        xs, xc = (torch.from_numpy(a) for a in tab["wx"])
-        part = torch.zeros((2, 18, h, w))
-        for j in range(xc.shape[0]):
-            rv = torch.zeros((2, 18, h, w))
-            for k in range(yc.shape[0]):
-                mv = m[:, :, (ys + k)[:, None], (xs + j)[None, :]]
-                rv = _fma(yc[k][:, None], mv, rv)
-            part = _fma(rv, xc[j], part)
-        banded["avg"] = _fma(part, inv_n, banded["avg"])
+        for key, left, right in (("smooth", "ay", "bx"), ("avg", "wy", "wx")):
+            lp = _staged_left_products(m, tab, left, h)
+            _staged_columns(tab, right, w)
+            cstart, ccoef = (torch.from_numpy(a) for a in tab[right])
+            part = torch.zeros((batch, parts, h, w))
+            for k in range(ccoef.shape[0]):
+                part = _fma(lp[..., cstart + k], ccoef[k], part)
+            banded[key] = _fma(part, inv_n, banded[key])
     for key in ("avg", "smooth"):
         assert torch.equal(banded[key], dense[key]), key
     got = masked_scores(banded["avg"].permute(0, 2, 3, 1), banded["smooth"].permute(0, 2, 3, 1),
                         0.1)
-    space = TSpace([torch.from_numpy(m) for m in _low_maps(np.random.default_rng(4), sizes, 19, 2)],
-                   geoms, (h, w))
-    want = pp.pyramid_peak_scores_plain(space, 18, 3.0, 0.1)
+    space = TSpace([torch.from_numpy(m) for m in low], geoms, (h, w))
+    want = pp.pyramid_peak_scores_plain(space, parts, 3.0, 0.1)
     mask = torch.isfinite(want)
     assert int(mask.sum()) > 10
     assert torch.equal(torch.isfinite(got), mask)
     assert (got[mask] - want[mask]).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("hw,scales", [((368, 368), (0.5, 1.0, 1.5, 2.0)), ((368, 368), (1.0,)),
-                                       ((496, 656), (0.5, 1.0, 1.5, 2.0)),
-                                       ((240, 960), (0.5, 1.0, 1.5))])
+# the image sizes the estimator meets: every DEFAULT_BUCKETS canvas
+# (tpupose_torch/buckets.py) and the common photo and video frames, (h, w)
+_ESTIMATOR_HW = ((368, 368), (368, 496), (496, 368), (368, 656), (656, 368), (496, 656),
+                 (656, 496), (640, 480), (480, 640), (720, 1280), (1280, 720), (1080, 1920))
+
+
+@pytest.mark.parametrize("hw,scales", [(hw, scales) for hw in _ESTIMATOR_HW
+                                       for scales in ((0.5, 1.0, 1.5, 2.0), (1.0,))]
+                         + [((240, 960), (0.5, 1.0, 1.5))])
 def test_peak_kernel_budgets_accept_the_main_path(hw, scales):
     """Both wrappers' shared-memory budgets at the geometries the decode
-    runs (the pyramid's tables and staged rows take 110 KB at 368x368)."""
+    runs (the pyramid's tables and staged rows take 110 KB at 368x368):
+    every bucket canvas and the common frames, portrait and landscape, at
+    the four scales and at scale 1.0."""
     from tpupose_torch.decode.peaks import gaussian_kernel1d
     from tpupose_torch.ops import peaks as pk
     from tpupose_torch.ops import pyramid_peaks as pp
@@ -526,8 +757,9 @@ def test_peak_kernel_budgets_accept_the_main_path(hw, scales):
 
 def test_peak_kernel_budgets_reject_what_a_block_cannot_hold():
     """Eight scales up to 7x reach more low-res columns than a block's
-    shared memory holds; a blur wider than the kernel is built for has no
-    kernel. Both raise ValueError."""
+    shared memory holds; so do the generic peaks path's rings beyond
+    radius 50 (sigma 13). Both raise ValueError. Sigma 4.5 and 6.0 (radius
+    18 and 24, past the templated radii) fit."""
     from tpupose_torch.decode.peaks import gaussian_kernel1d
     from tpupose_torch.ops import peaks as pk
     from tpupose_torch.ops import pyramid_peaks as pp
@@ -535,9 +767,50 @@ def test_peak_kernel_budgets_reject_what_a_block_cannot_hold():
     with pytest.raises(ValueError, match="shared memory"):
         pp.smem_bytes(_pyramid_shapes((368, 368), (0.5, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0)),
                       (368, 368), 3.0)
-    with pytest.raises(ValueError, match="radii up to 16"):
-        pk.smem_bytes((len(gaussian_kernel1d(4.5)) - 1) // 2)
-    assert pk.smem_bytes(16) <= 227 * 1024
+    radius = {sigma: (len(gaussian_kernel1d(sigma)) - 1) // 2 for sigma in (4.5, 6.0, 13.0)}
+    assert radius == {4.5: 18, 6.0: 24, 13.0: 52}
+    for sigma in (4.5, 6.0):
+        assert 0 < pk.smem_bytes(radius[sigma]) <= 227 * 1024
+    assert pk.smem_bytes(16) <= 227 * 1024 and pk.smem_bytes(50) <= 227 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.smem_bytes(radius[13.0])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gt_row_boxes_hold_every_pixel_the_exact_tests_pass(seed):
+    """ops/gt.reach_rows, the label rows for which the gt kernel lists a
+    (part, person) or (limb, person) pair, holds every row where
+    create_labels_plain's exact tests pass for that pair: 16 persons of
+    random joints on and off the 368-pixel image of the 46x46 grid, person
+    0's parts placed on grid columns at the cut-off distance above or below
+    a grid row (the Gaussian's last row is the box's edge)."""
+    from tpupose_torch.ops import gt as gt_mod
+
+    rng = np.random.default_rng(seed)
+    j = np.zeros((16, 18, 3), np.float32)
+    j[..., :2] = rng.uniform(-60.0, 428.0, (16, 18, 2))
+    j[..., 2] = rng.choice([0.0, 1.0, 2.0], (16, 18), p=[0.6, 0.2, 0.2])
+    rad = np.sqrt(4.6052 * 2 * 7.0 ** 2)
+    parts = np.arange(18)
+    j[0, :, 0] = (parts * 2 + 3) * 8 + 3.5
+    j[0, :, 1] = (parts * 2 + 4) * 8 + 3.5 + rad * np.where(parts % 2, 1.0, -1.0)
+    j[0, :, 2] = 0.0
+    box = gt_mod.reach_rows(j)
+    rows = np.arange(46, dtype=np.float32)
+    hits = 0
+    for q in range(16):
+        paf, heat = gt_mod.create_labels_plain(torch.from_numpy(j[q][None, None]),
+                                               torch.ones((1, 46, 46)))
+        heat_rows = (heat[0, ..., :18] > 0).any(dim=1).numpy()                  # (46, 18)
+        band_rows = (paf[0].reshape(46, 46, 19, 2) != 0).any(-1).any(1).numpy()  # (46, 19)
+        for name, hit in (("part", heat_rows), ("limb", band_rows)):
+            lo, hi = box[f"{name}_lo"][q], box[f"{name}_hi"][q]
+            for c in range(hit.shape[1]):
+                at = rows[hit[:, c]]
+                if len(at):
+                    hits += 1
+                    assert lo[c] <= at.min() and at.max() <= hi[c], (name, q, c)
+    assert hits > 100
 
 
 def test_pyramid_peaks_plain_matches_pallas_interpret():

@@ -22,13 +22,25 @@
 // What bounds it on the H100: bytes, and at training shapes the launch.
 // A batch of 10 at 46x46 writes 4.8 MB of labels from 52 KB of joints and
 // 85 KB of mask; the arithmetic is a few MFLOP. The Pallas kernel walks a
-// (sample, person) grid with the sample's output block resident in VMEM;
-// here a block stages one sample's joints and per-limb geometry (origin,
-// unit vector, length) in shared memory once, each thread owns one pixel,
-// loops over the persons keeping 18 running maxima and 19 x (sum x, sum y,
-// count) in registers, and writes its 57 channels straight into the NHWC
-// outputs — no per-person partial and no channel-major copy reaches
-// device memory.
+// (sample, person) grid with the sample's output block resident in VMEM.
+// Here a block takes one sample and a tile of whole label rows:
+//
+//   * it stages the sample's joints and per-limb geometry (origin, unit
+//     vector, length) in shared memory, and from conservative row boxes
+//     (a Gaussian reaches sqrt(4.6052 * 2 sigma^2) image pixels and one
+//     more; a band its bone's rows and thre + 1 label rows beyond) lists
+//     the (part, person) and (limb, person) pairs that can reach the tile,
+//     channel by channel and in person order. In the training batch few
+//     of the 24 persons are live and each reaches a few label rows, so
+//     most pairs drop out. Only listed pairs are evaluated, with the exact
+//     tests unchanged: a skipped pair adds nothing to a sum and nothing to
+//     a maximum, so the result is the same bit for bit as evaluating
+//     every pair;
+//   * its threads split over pixel x channel (18 parts and 19 limbs), each
+//     walking its channel's list;
+//   * the output tile is staged in shared memory, finished per pixel (the
+//     background, the mask) and written as contiguous float4 runs: a tile
+//     of whole label rows is one contiguous range of each NHWC output.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,6 +54,7 @@ constexpr int kLimbs = 19;
 // ops/gt.py.
 struct GtParams {
   int batch, persons, label;
+  int tile_rows;      // label rows per block
   float stride;       // s
   float half_stride;  // s / 2
   float denom;        // 2 sigma^2
@@ -55,26 +68,80 @@ struct GtParams {
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 512;
 constexpr int kJoint = kParts * 3;   // floats per person
 constexpr int kLimbRec = 6;          // ax, ay, ux, uy, norm, ok
+constexpr int kHeat = kParts + 1, kPaf = 2 * kLimbs;
 constexpr float kExpCutoff = 4.6052f;
+
+__host__ __device__ inline size_t smem_floats(int persons, int tile_pixels) {
+  return static_cast<size_t>(persons) * (kJoint + kLimbs * kLimbRec + kParts + kLimbs) +
+         (kParts + 1) + (kLimbs + 1) + static_cast<size_t>(tile_pixels) * (1 + kHeat + kPaf);
+}
 
 __device__ __forceinline__ float label_coord(float v, float s) {
   return __fsub_rn(__fdiv_rn(__fadd_rn(v, 0.5f), s), 0.5f);
 }
 
+// The pairs of channel c (0 .. n_ch - 1) and person q (entry c * P + q)
+// whose flag is set, compacted in entry order by one warp: list[] holds
+// c * P + q, start[c] the first of channel c, start[n_ch] the count.
+template <typename Flag>
+__device__ void build_list(int n_ch, int persons, Flag flag, int* list, int* start) {
+  const int lane = threadIdx.x & 31;
+  if (persons == 0) {
+    if (lane <= n_ch) start[lane] = 0;
+    return;
+  }
+  int count = 0;
+  for (int base = 0; base < n_ch * persons; base += 32) {
+    const int e = base + lane;
+    const bool in = e < n_ch * persons;
+    const bool f = in && flag(e / persons, e % persons);
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    const int at = count + __popc(bal & ((1u << lane) - 1u));
+    if (f) list[at] = e;
+    if (in && e % persons == 0) start[e / persons] = at;
+    count += __popc(bal);
+  }
+  if (lane == 0) start[n_ch] = count;
+}
+
+// n floats of s to g, g's float4 runs written whole
+__device__ void copy_out(float* g, const float* s, int n) {
+  const int head = min(n, static_cast<int>((4 - (reinterpret_cast<size_t>(g) / 4) % 4) % 4));
+  const int body = (n - head) / 4;
+  for (int i = threadIdx.x; i < head; i += kThreads) g[i] = s[i];
+  float4* g4 = reinterpret_cast<float4*>(g + head);
+  for (int v = threadIdx.x; v < body; v += kThreads) {
+    const float* sv = s + head + 4 * v;
+    g4[v] = make_float4(sv[0], sv[1], sv[2], sv[3]);
+  }
+  for (int i = head + 4 * body + threadIdx.x; i < n; i += kThreads) g[i] = s[i];
+}
+
 __global__ void __launch_bounds__(kThreads) gt_kernel(GtParams p) {
   extern __shared__ float smem[];
-  float* sj = smem;                          // persons x 54
-  float* sl = smem + p.persons * kJoint;     // persons x 19 x 6
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
+  const int P = p.persons, L = p.label;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int r0 = blockIdx.x * p.tile_rows, nrows = min(p.tile_rows, L - r0);
+  const int npix = nrows * L;
+  float* sj = smem;                                 // P x 54
+  float* sl = sj + P * kJoint;                      // P x 19 x 6
+  int* part_list = reinterpret_cast<int*>(sl + P * kLimbs * kLimbRec);   // part * P + q
+  int* limb_list = part_list + P * kParts;                                // limb * P + q
+  int* part_start = limb_list + P * kLimbs;         // kParts + 1
+  int* limb_start = part_start + kParts + 1;        // kLimbs + 1
+  float* s_mask = reinterpret_cast<float*>(limb_start + kLimbs + 1);   // npix
+  float* s_heat = s_mask + npix;                    // npix x 19
+  float* s_paf = s_heat + npix * kHeat;             // npix x 38
 
-  const float* jb = p.joints + static_cast<size_t>(b) * p.persons * kJoint;
-  for (int i = tid; i < p.persons * kJoint; i += kThreads) sj[i] = jb[i];
+  const float* jb = p.joints + static_cast<size_t>(b) * P * kJoint;
+  for (int i = tid; i < P * kJoint; i += kThreads) sj[i] = jb[i];
+  const size_t at0 = (static_cast<size_t>(b) * L + r0) * L;
+  for (int i = tid; i < npix; i += kThreads) s_mask[i] = p.mask[at0 + i];
   __syncthreads();
-  for (int i = tid; i < p.persons * kLimbs; i += kThreads) {
+  for (int i = tid; i < P * kLimbs; i += kThreads) {
     const int q = i / kLimbs, k = i % kLimbs;
     const float* ja = sj + q * kJoint + p.limb_a[k] * 3;
     const float* jc = sj + q * kJoint + p.limb_b[k] * 3;
@@ -94,74 +161,97 @@ __global__ void __launch_bounds__(kThreads) gt_kernel(GtParams p) {
   }
   __syncthreads();
 
-  const int area = p.label * p.label;
-  const int pix = blockIdx.x * kThreads + tid;
-  if (pix >= area) return;
-  const float row = static_cast<float>(pix / p.label);
-  const float col = static_cast<float>(pix % p.label);
-  const float gx = __fsub_rn(__fadd_rn(__fmul_rn(col, p.stride), p.half_stride), 0.5f);
-  const float gy = __fsub_rn(__fadd_rn(__fmul_rn(row, p.stride), p.half_stride), 0.5f);
+  // --- the pairs that can reach rows r0 .. r1 (ops/gt.py: reach_rows) -------
+  const float r1 = static_cast<float>(r0 + nrows - 1), rf0 = static_cast<float>(r0);
+  if (tid < 32) {
+    // a Gaussian's rows, from the image-space radius of the exp cut-off
+    const float rad = sqrtf(kExpCutoff * p.denom) + 1.0f;
+    const float off = p.half_stride - 0.5f;
+    build_list(kParts, P, [&](int part, int q) {
+      const float* j = sj + q * kJoint + part * 3;
+      return j[2] < 2.0f && (j[1] + rad - off) / p.stride >= rf0 &&
+             (j[1] - rad - off) / p.stride <= r1;
+    }, part_list, part_start);
+  } else if (tid < 64) {
+    // a band's rows: its bone's, and thre + 1 label rows beyond
+    build_list(kLimbs, P, [&](int k, int q) {
+      const float* e = sl + (q * kLimbs + k) * kLimbRec;
+      const float by = label_coord(sj[q * kJoint + p.limb_b[k] * 3 + 1], p.stride);
+      return e[5] != 0.f && fmaxf(e[1], by) + p.thre + 1.0f >= rf0 &&
+             fminf(e[1], by) - p.thre - 1.0f <= r1;
+    }, limb_list, limb_start);
+  }
+  __syncthreads();
 
-  float hmax[kParts], vx[kLimbs], vy[kLimbs], cnt[kLimbs];
-#pragma unroll
-  for (int part = 0; part < kParts; ++part) hmax[part] = 0.f;
-#pragma unroll
-  for (int k = 0; k < kLimbs; ++k) vx[k] = vy[k] = cnt[k] = 0.f;
-
-  for (int q = 0; q < p.persons; ++q) {
-    const float* j = sj + q * kJoint;
-#pragma unroll
-    for (int part = 0; part < kParts; ++part) {
-      if (j[part * 3 + 2] < 2.0f) {   // uniform over the block
-        const float dx = __fsub_rn(gx, j[part * 3]);
-        const float dy = __fsub_rn(gy, j[part * 3 + 1]);
-        const float expo =
-            __fdiv_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), p.denom);
-        if (expo <= kExpCutoff) hmax[part] = fmaxf(hmax[part], expf(-expo));
+  // --- pixel x channel: the listed pairs, exact tests --------------------------
+  for (int t = tid; t < npix * (kParts + kLimbs); t += kThreads) {
+    const int pix = t % npix, ch = t / npix;
+    const float row = static_cast<float>(r0 + pix / L);
+    const float col = static_cast<float>(pix % L);
+    if (ch < kParts) {
+      const float gx = __fsub_rn(__fadd_rn(__fmul_rn(col, p.stride), p.half_stride), 0.5f);
+      const float gy = __fsub_rn(__fadd_rn(__fmul_rn(row, p.stride), p.half_stride), 0.5f);
+      float hmax = 0.f;
+      for (int i = part_start[ch]; i < part_start[ch + 1]; ++i) {
+        const float* j = sj + (part_list[i] % P) * kJoint + ch * 3;
+        const float dx = __fsub_rn(gx, j[0]);
+        const float dy = __fsub_rn(gy, j[1]);
+        const float expo = __fdiv_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), p.denom);
+        if (expo <= kExpCutoff) hmax = fmaxf(hmax, expf(-expo));
       }
-    }
-    const float* lq = sl + q * kLimbs * kLimbRec;
-#pragma unroll
-    for (int k = 0; k < kLimbs; ++k) {
-      const float* e = lq + k * kLimbRec;
-      if (e[5] != 0.f) {              // uniform over the block
+      s_heat[pix * kHeat + ch] = fminf(hmax, 1.0f);
+    } else {
+      const int k = ch - kParts;
+      float vx = 0.f, vy = 0.f, cnt = 0.f;
+      for (int i = limb_start[k]; i < limb_start[k + 1]; ++i) {
+        const float* e = sl + ((limb_list[i] % P) * kLimbs + k) * kLimbRec;
         const float px = __fsub_rn(col, e[0]);
         const float py = __fsub_rn(row, e[1]);
         const float along = __fadd_rn(__fmul_rn(px, e[2]), __fmul_rn(py, e[3]));
         const float perp = fabsf(__fsub_rn(__fmul_rn(px, e[3]), __fmul_rn(py, e[2])));
         if (perp <= p.thre && along >= 0.f && along <= e[4]) {
-          vx[k] = __fadd_rn(vx[k], e[2]);
-          vy[k] = __fadd_rn(vy[k], e[3]);
-          cnt[k] = __fadd_rn(cnt[k], 1.0f);
+          vx = __fadd_rn(vx, e[2]);
+          vy = __fadd_rn(vy, e[3]);
+          cnt = __fadd_rn(cnt, 1.0f);
         }
       }
+      const float inv = __fdiv_rn(s_mask[pix], fmaxf(cnt, 1.0f));
+      s_paf[pix * kPaf + 2 * k] = __fmul_rn(vx, inv);
+      s_paf[pix * kPaf + 2 * k + 1] = __fmul_rn(vy, inv);
     }
   }
+  __syncthreads();
 
-  const size_t at = static_cast<size_t>(b) * area + pix;
-  const float m = p.mask[at];
-  float* heat = p.heat + at * (kParts + 1);
-  float fg = 0.f;
-#pragma unroll
-  for (int part = 0; part < kParts; ++part) {
-    const float h = fminf(hmax[part], 1.0f);
-    fg = fmaxf(fg, h);
-    heat[part] = __fmul_rn(h, m);
+  // --- per pixel: background and mask ------------------------------------------
+  for (int pix = tid; pix < npix; pix += kThreads) {
+    float* h = s_heat + pix * kHeat;
+    const float m = s_mask[pix];
+    float fg = 0.f;
+    for (int part = 0; part < kParts; ++part) {
+      fg = fmaxf(fg, h[part]);
+      h[part] = __fmul_rn(h[part], m);
+    }
+    h[kParts] = __fmul_rn(__fsub_rn(1.0f, fg), m);
   }
-  heat[kParts] = __fmul_rn(__fsub_rn(1.0f, fg), m);
-  float* paf = p.paf + at * (2 * kLimbs);
-#pragma unroll
-  for (int k = 0; k < kLimbs; ++k) {
-    const float inv = __fdiv_rn(m, fmaxf(cnt[k], 1.0f));
-    paf[2 * k] = __fmul_rn(vx[k], inv);
-    paf[2 * k + 1] = __fmul_rn(vy[k], inv);
-  }
+  __syncthreads();
+
+  copy_out(p.heat + at0 * kHeat, s_heat, npix * kHeat);
+  copy_out(p.paf + at0 * kPaf, s_paf, npix * kPaf);
 }
 
 }  // namespace
 
+// Shared memory (bytes) a block asks for; ops/gt.py's smem_bytes computes
+// the same.
+extern "C" int tp_gt_smem(int persons, int label, int tile_rows) {
+  return static_cast<int>(smem_floats(persons, min(tile_rows, label) * label) * sizeof(float));
+}
+
 extern "C" int tp_gt(const GtParams* p, void* stream) {
-  if (p->batch < 1 || p->persons < 0 || p->label < 1) return cudaErrorInvalidValue;
+  if (p->batch < 1 || p->persons < 0 || p->label < 1 || p->tile_rows < 1 ||
+      p->batch > 65535) {
+    return cudaErrorInvalidValue;
+  }
   for (int k = 0; k < kLimbs; ++k) {
     if (p->limb_a[k] < 0 || p->limb_a[k] >= kParts || p->limb_b[k] < 0 ||
         p->limb_b[k] >= kParts) {
@@ -169,10 +259,11 @@ extern "C" int tp_gt(const GtParams* p, void* stream) {
     }
   }
   const size_t smem =
-      static_cast<size_t>(p->persons) * (kJoint + kLimbs * kLimbRec) * sizeof(float);
+      smem_floats(p->persons, min(p->tile_rows, p->label) * p->label) * sizeof(float);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t err = tp_allow_smem(gt_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p->label * p->label + kThreads - 1) / kThreads, p->batch);
+  const dim3 grid((p->label + p->tile_rows - 1) / p->tile_rows, p->batch);
   gt_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(*p);
   return cudaGetLastError();
 }

@@ -17,6 +17,24 @@ from tpupose_torch.decode import assemble as _assemble
 from tpupose_torch.decode import paf as _paf
 from tpupose_torch.ops._build import CudaKernel
 
+_MAX_SLOTS = 1024   # csrc/assoc.cu kMaxSlots: a K-bit set over a warp's 32 lanes
+_SMEM_LIMIT = 227 * 1024
+
+
+def smem_bytes(limbs: int, n_conn: int, max_people: int, k_slots: int) -> int:
+    """Shared memory a block of the kernel asks for (the accepted
+    connections, the people table, its index from peaks to rows); raises
+    ``ValueError`` where that is more than a block of the H100 may hold."""
+    p = max_people
+    need = (5 * limbs * n_conn * 4 + limbs * 4 + topology.NUM_PARTS * (p + 1) * 4 + 3 * p * 4
+            + topology.NUM_PARTS * k_slots * 4 + p)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"assoc: {n_conn} connections a limb, {p} people and {k_slots} peak "
+                         f"slots need {need} bytes of shared memory a block, more than "
+                         f"{_SMEM_LIMIT}")
+    return need
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel(
@@ -72,6 +90,10 @@ def assoc(ts, ta, tb, sa, sb, limits, k_slots: int, n_conn: int,
         return assoc_plain(ts, ta, tb, sa, sb, limits, k_slots, n_conn, max_people)
     if dev.type != "cuda":
         raise ValueError(f"assoc: unsupported device {dev}")
+    if k_slots > _MAX_SLOTS:
+        raise ValueError(f"assoc: {k_slots} peak slots; the kernel's used-slot sets hold "
+                         f"{_MAX_SLOTS}")
+    smem_bytes(n_limbs, n_conn, max_people, k_slots)
     f32 = [t.to(torch.float32).contiguous() for t in (ts, sa, sb)]
     i32 = [t.to(torch.int32).contiguous() for t in (ta, tb, limits)]
     if any(t.device != dev for t in f32 + i32):

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from tpupose_torch import topology
@@ -16,12 +17,64 @@ from tpupose_torch.ops._build import CudaKernel
 
 _EXP_CUTOFF = 4.6052  # skip where d^2 / (2 sigma^2) > ln(100)
 _SMEM_LIMIT = 227 * 1024
-_BYTES_PER_PERSON = (topology.NUM_PARTS * 3 + topology.NUM_LIMBS * 6) * 4
+# csrc/gt.cu: per person the joints, the limb records and two list entries per
+# channel; per pixel of a tile the mask and the 57 staged channels; the lists'
+# channel starts (a card test holds smem_bytes to the kernel's own count)
+_FLOATS_PER_PERSON = topology.NUM_PARTS * 3 + topology.NUM_LIMBS * 6 + topology.NUM_PARTS \
+    + topology.NUM_LIMBS
+_FLOATS_PER_PIXEL = 1 + topology.NUM_HEAT_CHANNELS + topology.NUM_PAF_CHANNELS
+_TILE_PIXELS = 96     # label rows per block: as many whole rows as fit
+
+
+def tile_rows(label_size: int) -> int:
+    """Label rows a block of the kernel takes (2, 92 pixels, at 46 x 46)."""
+    return max(1, min(label_size, _TILE_PIXELS // label_size))
+
+
+def smem_bytes(persons: int, label_size: int) -> int:
+    """Shared memory a block of the kernel asks for; raises ``ValueError``
+    where that is more than a block of the H100 may hold."""
+    need = 4 * (persons * _FLOATS_PER_PERSON + topology.NUM_PARTS + topology.NUM_LIMBS + 2
+                + tile_rows(label_size) * label_size * _FLOATS_PER_PIXEL)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"create_labels: {persons} persons on a {label_size}-cell grid need "
+                         f"{need} bytes of shared memory a block, more than {_SMEM_LIMIT}")
+    return need
+
+
+def reach_rows(joints: np.ndarray, stride: int = 8, sigma: float = 7.0,
+               paf_thre: float = 8.0) -> dict[str, np.ndarray]:
+    """The kernel's conservative row boxes, in f32 label rows, for (..., 18,
+    3) joints: a present part's Gaussian reaches rows ``part_lo ..
+    part_hi`` (its cut-off radius in image pixels and one more), a valid
+    limb's band rows ``limb_lo .. limb_hi`` (the bone's rows, and thre + 1
+    label rows beyond); absent parts and invalid limbs reach none (lo =
+    +inf). A block lists a pair for its tile of rows r0 .. r1 when hi >= r0
+    and lo <= r1."""
+    f = np.float32
+    j = np.asarray(joints, f)
+    s, off = f(stride), f(stride / 2.0 - 0.5)
+    rad = np.sqrt(f(_EXP_CUTOFF) * f(2.0 * sigma * sigma)) + f(1.0)
+    present = j[..., 2] < 2.0
+    with np.errstate(invalid="ignore", over="ignore"):
+        part_lo = np.where(present, (j[..., 1] - rad - off) / s, np.inf).astype(f)
+        part_hi = np.where(present, (j[..., 1] + rad - off) / s, -np.inf).astype(f)
+        limbs = np.asarray(topology.LIMBS)
+        ja, jb = j[..., limbs[:, 0], :], j[..., limbs[:, 1], :]
+        ay, by = (ja[..., 1] + f(0.5)) / s - f(0.5), (jb[..., 1] + f(0.5)) / s - f(0.5)
+        ax, bx = (ja[..., 0] + f(0.5)) / s - f(0.5), (jb[..., 0] + f(0.5)) / s - f(0.5)
+        norm = np.sqrt((bx - ax) * (bx - ax) + (by - ay) * (by - ay))
+        ok = (ja[..., 2] < 2.0) & (jb[..., 2] < 2.0) & (norm >= f(1e-8))
+        thre = f(paf_thre / float(stride)) + f(1.0)
+        limb_lo = np.where(ok, np.minimum(ay, by) - thre, np.inf).astype(f)
+        limb_hi = np.where(ok, np.maximum(ay, by) + thre, -np.inf).astype(f)
+    return {"part_lo": part_lo, "part_hi": part_hi, "limb_lo": limb_lo, "limb_hi": limb_hi}
 
 
 class _Params(ctypes.Structure):
     _fields_ = [
         ("batch", ctypes.c_int), ("persons", ctypes.c_int), ("label", ctypes.c_int),
+        ("tile_rows", ctypes.c_int),
         ("stride", ctypes.c_float), ("half_stride", ctypes.c_float),
         ("denom", ctypes.c_float), ("thre", ctypes.c_float),
         ("limb_a", ctypes.c_int * topology.NUM_LIMBS),
@@ -126,8 +179,7 @@ def create_labels(joints: torch.Tensor, mask: torch.Tensor, label_size: int = 46
         return create_labels_plain(joints, mask, label_size, stride, sigma, paf_thre)
     if dev.type != "cuda":
         raise ValueError(f"create_labels: unsupported device {dev}")
-    if persons * _BYTES_PER_PERSON > _SMEM_LIMIT:
-        raise ValueError(f"create_labels: {persons} persons exceed the kernel's shared memory")
+    smem_bytes(persons, label_size)
     jc = joints.detach().to(torch.float32).contiguous()
     mc = mask.detach().to(torch.float32).contiguous()
     paf = torch.empty((n, label_size, label_size, topology.NUM_PAF_CHANNELS),
@@ -136,8 +188,10 @@ def create_labels(joints: torch.Tensor, mask: torch.Tensor, label_size: int = 46
                        dtype=torch.float32, device=dev)
     if n == 0:
         return paf, heat
+    if n > 65535:
+        raise ValueError(f"create_labels: {n} samples exceed the kernel's grid")
     p = _Params()
-    p.batch, p.persons, p.label = n, persons, label_size
+    p.batch, p.persons, p.label, p.tile_rows = n, persons, label_size, tile_rows(label_size)
     p.stride = float(stride)
     p.half_stride = stride / 2.0
     p.denom = 2.0 * sigma * sigma

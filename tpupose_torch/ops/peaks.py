@@ -20,10 +20,11 @@ from tpupose_torch.decode.peaks import (
 )
 from tpupose_torch.ops._build import CudaKernel
 
-_MAX_TAPS = 64
-# csrc/peaks.cu: kMaxRadius, kWarps, kCols, kBandRows, kRing (a card test holds
-# smem_bytes to the kernel's own count)
-_MAX_RADIUS, _WARPS, _COLS, _BAND_ROWS, _RING = 16, 18, 64, 46, 16
+_MAX_TAPS = 128
+_SMEM_LIMIT = 227 * 1024
+# csrc/peaks.cu: kMaxRadius, kWarps, kGenWarps, kCols, kBandRows, kRing (a card
+# test holds smem_bytes to the kernel's own count)
+_MAX_RADIUS, _WARPS, _GEN_WARPS, _COLS, _BAND_ROWS, _RING = 16, 18, 6, 64, 46, 16
 
 
 class _Params(ctypes.Structure):
@@ -42,14 +43,22 @@ KERNEL = CudaKernel(
 
 
 def smem_bytes(radius: int) -> int:
-    """Shared memory the kernel asks for at a blur radius (a ring of input
-    rows, each channel's row padded to 2 mod 32 floats); raises
-    ``ValueError`` for a radius the kernel is not built for."""
-    if not 0 <= radius <= _MAX_RADIUS:
-        raise ValueError(f"peak_scores: blur radius {radius}; the kernel is built for radii "
-                         f"up to {_MAX_RADIUS} ({2 * _MAX_RADIUS + 1} taps)")
+    """Shared memory the kernel asks for at a blur radius: a ring of input
+    rows (each channel's row padded to 2 mod 32 floats) of 18 channels up
+    to radius 16; beyond, the generic path's ring of 6 channels, each
+    thread's 2r + 1 horizontal results (two columns) and the taps. Raises
+    ``ValueError`` where that is more than a block of the H100 may hold
+    (radius 51 and up, sigma 12.625 and up)."""
+    if radius < 0:
+        raise ValueError(f"peak_scores: blur radius {radius}")
     pitch = (_COLS + 2 * radius - 2 + 31) // 32 * 32 + 2
-    return 4 * _RING * _WARPS * pitch
+    if radius <= _MAX_RADIUS:
+        return 4 * _RING * _WARPS * pitch
+    need = 4 * (_RING * _GEN_WARPS * pitch + (2 * radius + 1) * (2 * 32 * _GEN_WARPS + 1))
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"peak_scores: blur radius {radius} needs {need} bytes of shared "
+                         f"memory a block for its rings, more than {_SMEM_LIMIT}")
+    return need
 
 
 def peak_scores_plain(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,

@@ -59,13 +59,16 @@ KERNEL = CudaKernel(
 _OPERATORS = ("wy", "wx", "ay", "bx")     # the order of chain_matrices
 
 
-def band_table(mat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+def band_table(mat: np.ndarray, within: tuple | None = None) -> tuple[np.ndarray, np.ndarray]:
     """(n_out, n_low) operator -> (start (n_out,) int32, coef (width, n_out) f32).
 
     Row i of ``mat`` is zero outside ``start[i] .. start[i] + width - 1``
     and equals ``coef[:, i]`` there; ``width`` is the widest run of
     non-zero entries of any row, and shorter runs are padded with exact
     zeros (a run near the end of the axis starts early enough to fit).
+    With ``within``, the band table of a wider operator over the same
+    axes, each padded run also ends by the end of that operator's run of
+    the same row, so it lies inside it wherever its non-zero entries do.
     Starts never decrease. Raises ``ValueError`` for an operator that is
     not banded so.
     """
@@ -78,11 +81,14 @@ def band_table(mat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     width = int((last - first + 1)[live].max()) if live.any() else 1
     # an all-zero row takes its predecessor's start
     first = np.maximum.accumulate(np.where(live, first, 0))
-    start = np.minimum(first, n_low - width).astype(np.int32)
+    end = np.full(n_out, n_low)
+    if within is not None:
+        end = np.minimum(end, within[0] + len(within[1]))
+    start = np.minimum(first, end - width).astype(np.int32)
     coef = np.take_along_axis(mat, start[:, None] + np.arange(width), axis=1)
     back = np.zeros_like(mat)
     np.put_along_axis(back, start[:, None] + np.arange(width), coef, axis=1)
-    if not np.array_equal(back, mat) or (np.diff(start) < 0).any():
+    if not np.array_equal(back, mat) or (np.diff(start) < 0).any() or start.min(initial=0) < 0:
         raise ValueError("band_table: the operator is not one non-decreasing band per row")
     return start, np.ascontiguousarray(coef.T)
 
@@ -120,8 +126,11 @@ def bands(shapes: tuple, out_hw: tuple, sigma: float) -> list[dict]:
     key = (shapes, out_hw, sigma)
     if key not in _BANDS:
         out = []
-        for mats in chain_matrices(shapes, out_hw, sigma):
-            tab = {name: band_table(m) for name, m in zip(_OPERATORS, mats)}
+        for wy, wx, ay, bx in chain_matrices(shapes, out_hw, sigma):
+            # the blurred runs first: the plain chain's runs are placed inside them
+            tab = {"ay": band_table(ay), "bx": band_table(bx)}
+            tab["wy"] = band_table(wy, within=tab["ay"])
+            tab["wx"] = band_table(wx, within=tab["bx"])
             ay_start, ay_coef = tab["ay"]
             bx_start, bx_coef = tab["bx"]
             tab["hcap"] = _reach(ay_start, len(ay_coef), _OUT_ROWS)

@@ -4,6 +4,8 @@
 two-person scene from the port's ground-truth rasteriser
 (``gt.rasterize.create_labels`` on the CPU), resized with the port's own
 bilinear resize: decoding them must give the two people.
+``crowded_scene`` does the same for a crowd of 30 or more people in a
+720x1280 frame: the tables the association meets on a crowded frame.
 """
 
 from __future__ import annotations
@@ -50,3 +52,37 @@ def planted_scene(sizes, seed: int = 3):
         heats.append(low[None, :, :, 38:].contiguous())
         pafs.append(low[None, :, :, :38].contiguous())
     return heats, pafs
+
+
+def crowded_scene(sizes, n_people: int = 32, seed: int = 0, frame: tuple = (720, 1280)):
+    """``n_people`` upright persons in a frame of (h, w) pixels, on a grid
+    of 8 columns with sizes and places jittered from ``seed`` (neighbours
+    overlap a little), rasterised with ``create_labels`` on the
+    square stride-8 label grid that covers the frame, cropped to the frame
+    and resized to each scale's low-res grid: per-scale (1, Hl, Wl, 19)
+    heat and (1, Hl, Wl, 38) PAF maps for the pyramid ``sizes`` of the
+    frame (``image.scale_sizes``), and the (n_people, 18, 3) joints."""
+    h, w = frame
+    rng = np.random.default_rng(seed)
+    cols = 8
+    rows = -(-n_people // cols)
+    cell_h, cell_w = h / rows, w / cols
+    cells = np.sort(rng.choice(rows * cols, n_people, replace=False))
+    joints = []
+    for cell in cells:
+        r, c = divmod(int(cell), cols)
+        size = rng.uniform(0.75, 1.0) * min(cell_h, cell_w / 0.9)
+        cx = (c + 0.5 + rng.uniform(-0.15, 0.15)) * cell_w
+        cy = (r + 0.5 + rng.uniform(-0.1, 0.1)) * cell_h
+        joints.append(person(cx, cy, size))
+    joints = np.stack(joints).astype(np.float32)
+    label = -(-max(h, w) // 8)
+    paf, heat = create_labels(torch.from_numpy(joints)[None], torch.ones((1, label, label)),
+                              label_size=label, stride=8)
+    labels = torch.cat([paf[0], heat[0]], dim=-1)[: -(-h // 8), : -(-w // 8)]
+    heats, pafs = [], []
+    for _, _, ph, pw in sizes:
+        low = image.resize_bilinear(labels, ph // 8, pw // 8)
+        heats.append(low[None, :, :, 38:].contiguous())
+        pafs.append(low[None, :, :, :38].contiguous())
+    return heats, pafs, joints
