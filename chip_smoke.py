@@ -97,9 +97,37 @@ exits non-zero):
   g. one small train step (2 stages, boxsize 64, batch 2, 3 persons) on
      the card against the CPU: per-head losses within 1e-4 relative in
      f32; with the network's arithmetic in f64 (no ReLU within rounding of
-     zero decides differently) the updated f32 parameters within 1e-5.
+     zero decides differently) the updated f32 parameters within 1e-5;
+  h. the serving path (run after phase d, on its scale-space estimator):
+     the estimator's weights saved with torch.save under the original
+     release's Caffe layer names (OIHW, no h5py) and loaded by
+     PoseEstimator(weights_path=): pretrained, and on a 4-scale batch of 8
+     its tables bit-equal to those of the estimator built from the same
+     params; warmup_estimator over the bucket ladder at max batch 8 (its
+     seconds shown); serve(max_batch=8, batch_window_ms=5, the ladder)
+     answers 32 PNG requests (encoded with zlib, rows filtered as libpng
+     chooses by default, Paeth and Average among them; 368x368 images,
+     640x480 portraits for the 656x496 bucket and 720x1280 frames, sizes
+     H x W) from 8 client threads, the server decoding them with cv2 as
+     the reference does, each response equal to the
+     people a BucketedRunner returns for the images of the device batch the
+     server ran it in (integers equal, floats within 1e-4; what one image
+     decodes to depends on its device batch, through the batch size and the
+     batch-global peak-overflow switch), every shape decoding people;
+     /healthz pretrained, /metrics 32 requests, 0 errors and a mean device
+     batch above 1; a 1-byte body 400, an unknown path 404, a body over
+     32 MiB 413; block1, pyramid_peaks, sample and assoc launched during the
+     requests, gt and peaks never; requests/s and latency p50/p99; the
+     batch dependence shown on one image (copies of it at device batch
+     1/2/4/8 against batch 1: block 1's output, a cuDNN conv's, the last
+     stage's maps and the people, in bf16 and with the same weights in
+     f32); host times to decode a body; a serial server (max batch 1, no
+     buckets) answers one 368x368 request with process()'s people. (Phase d's planted scene is a set of network
+     outputs, not an image: no image drives the seeded network to it, so
+     the requests are seeded random images and the heads are scaled as in
+     phase d so that they decode people.)
 
-The phase e and f lines are printed once more at the end; the last three
+The phase e, f and h lines are printed once more at the end; the last three
 lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero before
@@ -275,6 +303,304 @@ def _parent_times(parent: str, data_path: str) -> dict:
     if done.returncode != 0:
         raise RuntimeError(f"timing the kernels of {parent} failed:\n{done.stderr[-2000:]}")
     return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def _post(server, body: bytes, path: str = "/pose", timeout: float = 300.0):
+    """(status, JSON body) of one POST to the server."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*server.server_address[:2], timeout=timeout)
+    try:
+        conn.request("POST", path, body=body)
+        reply = conn.getresponse()
+        return reply.status, json.loads(reply.read())
+    finally:
+        conn.close()
+
+
+def _get(server, path: str):
+    import http.client
+
+    conn = http.client.HTTPConnection(*server.server_address[:2], timeout=60)
+    try:
+        conn.request("GET", path)
+        reply = conn.getresponse()
+        return reply.status, json.loads(reply.read())
+    finally:
+        conn.close()
+
+
+def _same_people(got: list, want: list, what: str) -> None:
+    """People equal: counts, parts and coordinates exactly, scores within 1e-4."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} people, the reference {len(want)}")
+    for a, b in zip(got, want):
+        if a["num_parts"] != b["num_parts"] or sorted(a["keypoints"]) != sorted(b["keypoints"]):
+            raise AssertionError(f"{what}: a person's parts differ from the reference")
+        if abs(a["score"] - b["score"]) > 1e-4:
+            raise AssertionError(f"{what}: a person's score differs from the reference")
+        for name, kp in a["keypoints"].items():
+            o = b["keypoints"][name]
+            if (kp["x"], kp["y"]) != (o["x"], o["y"]) or abs(kp["score"] - o["score"]) > 1e-4:
+                raise AssertionError(f"{what}: keypoint {name} differs from the reference")
+
+
+def _row_filter_counts(np, body: bytes) -> list:
+    """How many rows of an 8-bit RGB PNG use each filter type 0..4."""
+    import struct
+    import zlib
+
+    w, h = struct.unpack(">II", body[16:24])
+    pos, idat = 8, []
+    while pos < len(body):
+        length, kind = struct.unpack(">I4s", body[pos:pos + 8])
+        if kind == b"IDAT":
+            idat.append(body[pos + 8:pos + 8 + length])
+        pos += 12 + length
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    return np.bincount(raw[::3 * w + 1][:h], minlength=5).tolist()
+
+
+def _batch_witness(torch, np, est, image) -> dict:
+    """Copy 0 of ``image`` (a canvas of a bucket) in device batches of 1, 2,
+    4 and 8 copies, against batch 1: the elements of block 1's output
+    (conv2_1's input) that differ, the largest difference of conv2_1's
+    output (a cuDNN conv) and of the last stage's heat and PAF maps over
+    the 4 scales (beside the maps' largest magnitude), and the people a
+    BucketedRunner of that batch size decodes."""
+    from tpupose_torch.buckets import BucketedRunner
+
+    seen = []
+    hook = est.model.vgg.conv2_1.register_forward_hook(
+        lambda module, args, out: seen.append((args[0][:1].float(), out[:1].float())))
+    out, ref = {}, None
+    try:
+        for n in (1, 2, 4, 8):
+            seen.clear()
+            with torch.inference_mode():
+                _, heats, pafs = est._low_res(np.repeat(image[None], n, axis=0), None)
+            now = (list(seen), [t[:1].float() for t in heats], [t[:1].float() for t in pafs])
+            people = len(BucketedRunner(est, batch_size=n).process_many([image])[0])
+            if ref is None:
+                ref = now
+            gap = lambda xs, ys: max(float((x - y).abs().max()) for x, y in zip(xs, ys))  # noqa: E731
+            out[n] = {
+                "people": people,
+                "block1_differ": sum(int((a != b).sum()) for (a, _), (b, _) in zip(now[0], ref[0])),
+                "conv2_1": gap([o for _, o in now[0]], [o for _, o in ref[0]]),
+                "heat": gap(now[1], ref[1]), "paf": gap(now[2], ref[2]),
+            }
+        out["magnitude"] = {"conv2_1": max(float(o.abs().max()) for _, o in ref[0]),
+                            "heat": max(float(t.abs().max()) for t in ref[1]),
+                            "paf": max(float(t.abs().max()) for t in ref[2])}
+    finally:
+        hook.remove()
+    return out
+
+
+def _serving_phase(torch, np, est, card: str, rng) -> dict:
+    """Phase h: the serving path on the card. ``est`` is the seeded
+    full-width scale-space estimator (its output convolutions scaled as
+    phase d scales them). Returns the launches during the requests."""
+    import concurrent.futures
+    import dataclasses
+    import hashlib
+    import tempfile
+
+    import cv2
+
+    from tpupose_torch import ops
+    from tpupose_torch.buckets import DEFAULT_BUCKETS, BucketedRunner, choose_bucket, to_bucket
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.models import weights as weights_lib
+    from tpupose_torch.serve import _decode_png, decode_image, serve, warmup_estimator
+    from tpupose_torch.testing import png_bytes
+
+    # 1. a torch weight file of the original release's naming, written without
+    # h5py: model0.<caffe layer>.weight (OIHW) / .bias
+    params = weights_lib.to_flax(est.model.state_dict())
+    state = {}
+    for scope, layers in params.items():
+        for layer, leaves in layers.items():
+            name = weights_lib._flax_name_to_keras(scope, layer)
+            state[f"model0.{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(leaves["kernel"].transpose(3, 2, 0, 1)))
+            state[f"model0.{name}.bias"] = torch.from_numpy(leaves["bias"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pose_model.pth")
+        torch.save(state, path)
+        served = PoseEstimator(DEFAULT, weights_path=path, device="cuda")
+    from_params = PoseEstimator(DEFAULT, params=params, device="cuda")
+    if served.pretrained is not True:
+        raise AssertionError("PoseEstimator(weights_path=.pth) is not pretrained")
+    imgs8 = rng.integers(0, 256, (8, 368, 368, 3)).astype(np.uint8)
+    n8, got = served.process_batch_async(imgs8)
+    want = from_params.process_batch_async(imgs8)[1]
+    for key in want:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"the .pth estimator's {key} differs from the params-built one's")
+    people_pth, people_params = served._finish(n8, got), from_params._finish(n8, want)
+    if people_pth != people_params or not sum(map(len, people_pth)):
+        raise AssertionError("the .pth estimator's people differ from the params-built one's")
+    _say("h", f"weights written as a torch .pth ({len(state)} tensors, Caffe layer names, OIHW) "
+              f"and loaded with PoseEstimator(weights_path=): pretrained, 4-scale batch of 8 "
+              f"({sum(map(len, people_pth))} people) bit-equal to the params-built estimator "
+              "in every table: pass")
+    del from_params, got, want, state, params
+
+    # 2. warm-up over the bucket ladder, then the micro-batching server. Every
+    # device batch the server runs is recorded (its canvases in order): what
+    # the decode finds in one image depends on its batch, through the batch
+    # size (cuDNN takes other routines for the bf16 convolutions) and through
+    # the peak tables' overflow switch, which is batch-global as in the
+    # reference. So each recorded batch's images are run again through a
+    # BucketedRunner of that batch size, which builds the same device batch,
+    # and every response must equal the runner's people for its image.
+    t0 = time.perf_counter()
+    n_geoms = warmup_estimator(served, DEFAULT_BUCKETS, max_batch=8)
+    warm_s = time.perf_counter() - t0
+
+    class Recorded:
+        pretrained = served.pretrained
+
+        def __init__(self):
+            self.batches = []
+            self.busy_s = 0.0       # host clock inside process_batch
+
+        def process_batch(self, images, scales=None, valid_hw=None):
+            self.batches.append([hashlib.sha1(c.tobytes()).hexdigest() for c in images])
+            t = time.perf_counter()
+            people = served.process_batch(images, scales=scales, valid_hw=valid_hw)
+            self.busy_s += time.perf_counter() - t
+            return people
+
+    recorded = Recorded()
+    shapes = ((368, 368, 3), (640, 480, 3), (720, 1280, 3))      # H x W x 3
+    images = [rng.integers(0, 256, shapes[i % 3]).astype(np.uint8) for i in range(32)]
+    # PNGs as libpng writes them by default: each row's filter chosen by the
+    # least sum of its signed bytes (held to cv2.imencode's choice by a CPU test)
+    bodies = [png_bytes(img, "adaptive", level=6) for img in images]
+    row_filters = np.sum([_row_filter_counts(np, body) for body in bodies], axis=0).tolist()
+    server = serve(recorded, port=0, max_batch=8, batch_window_ms=5, buckets=DEFAULT_BUCKETS)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            replies = list(pool.map(lambda body: _post(server, body), bodies))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        deadline = time.time() + 30
+        while True:     # a request is counted after its reply is written
+            metrics = _get(server, "/metrics")[1]
+            if metrics["requests"] >= 32 or time.time() > deadline:
+                break
+            time.sleep(0.01)
+        health = _get(server, "/healthz")
+        bad = {"1-byte body": _post(server, b"x")[0], "unknown path": _post(server, b"x", "/x")[0]}
+        import http.client
+
+        conn = http.client.HTTPConnection(*server.server_address[:2], timeout=60)
+        conn.putrequest("POST", "/pose")
+        conn.putheader("Content-Length", str((32 << 20) + 1))
+        conn.endheaders()
+        bad["body over 32 MiB"] = conn.getresponse().status
+        conn.close()
+    finally:
+        server.shutdown()
+        server.batcher.close()
+    if [status for status, _ in replies] != [200] * 32:
+        raise AssertionError(f"request statuses {[status for status, _ in replies]}")
+    request_of = {}
+    for i, img in enumerate(images):
+        canvas = to_bucket(img, *choose_bucket(img.shape[0], img.shape[1], DEFAULT_BUCKETS))[0]
+        request_of[hashlib.sha1(canvas.tobytes()).hexdigest()] = i
+    by_shape, answered = {}, set()
+    for digests in recorded.batches:
+        # the batch's requests in order; the batcher pads with copies of the last
+        order = [request_of[d] for i, d in enumerate(digests) if d not in digests[:i]]
+        want = BucketedRunner(served, batch_size=len(digests)).process_many(
+            [images[i] for i in order])
+        for i, people in zip(order, want):
+            shape = images[i].shape
+            _same_people(replies[i][1]["people"], people,
+                         f"request {i}, a {shape[0]}x{shape[1]} image")
+            by_shape.setdefault(shape[:2], []).append((len(digests), len(people)))
+            answered.add(i)
+    if answered != set(range(32)):
+        raise AssertionError(f"requests in no recorded batch: {sorted(set(range(32)) - answered)}")
+    if min(sum(k for _, k in v) for v in by_shape.values()) < 1:
+        raise AssertionError(f"a request shape decoded no person: {by_shape}")
+    if health != (200, {"status": "ok", "pretrained": True}):
+        raise AssertionError(f"/healthz: {health}")
+    if not (metrics["requests"] == 32 and metrics["errors"] == 0 and metrics["mean_batch"] > 1):
+        raise AssertionError(f"/metrics: {metrics}")
+    if bad != {"1-byte body": 400, "unknown path": 404, "body over 32 MiB": 413}:
+        raise AssertionError(f"error statuses: {bad}")
+    kernels = ("block1", "pyramid_peaks", "sample", "assoc")
+    if min(counts[k] for k in kernels) < 1 or counts["gt"] or counts["peaks"]:
+        raise AssertionError(f"launches during the requests: {counts}")
+    _say("h", f"warm-up: {n_geoms} batch geometries (7 buckets x batch 1/2/4/8) in {warm_s:.2f} s")
+    _say("h", f"32 PNG requests (H x W 368x368, 640x480, 720x1280; rows by filter None, Sub, "
+              f"Up, Average, Paeth: {row_filters}; decoded by cv2 {cv2.__version__}) from 8 "
+              "client threads, max batch 8, 5 ms window, the bucket ladder: every response "
+              "equals the people of a "
+              "BucketedRunner given the images of its device batch; (device batch, people) "
+              "per shape "
+              + "; ".join(f"{h}x{w}: {v}" for (h, w), v in by_shape.items())
+              + f"; /healthz pretrained, /metrics {metrics['requests']} requests, "
+              f"{metrics['errors']} errors, {metrics['batches']} device batches, mean "
+              f"{metrics['mean_batch']:.2f}; statuses {bad}; launches {counts}: pass")
+    _say("h", f"serving, max batch 8: {32 / wall:.2f} requests/s over the 32 requests, latency "
+              f"p50 {metrics['latency_ms']['p50']:.2f} ms, p99 {metrics['latency_ms']['p99']:.2f} "
+              f"ms (/metrics); the batcher's worker inside process_batch {recorded.busy_s:.3f} "
+              f"of the {wall:.3f} s ({recorded.busy_s / wall:.3f}), "
+              f"{sum(map(len, recorded.batches))} images in its device batches, padding included "
+              f"({card})")
+
+    # the batch dependence, on one image: its copies at each device batch
+    # size in bf16, and with the same weights in f32 (TF32 off)
+    f32_cfg = dataclasses.replace(
+        DEFAULT, model=dataclasses.replace(DEFAULT.model, compute_dtype="float32"))
+    f32 = PoseEstimator(f32_cfg, params=weights_lib.to_flax(served.model.state_dict()),
+                        device="cuda")
+    witness = {"bf16": _batch_witness(torch, np, served, images[0]),
+               "f32": _batch_witness(torch, np, f32, images[0])}
+    del f32
+    _say("h", f"batch dependence, copy 0 of one 368x368 request image at device batch n "
+              f"(copies of it) against batch 1: {json.dumps(witness)}")
+
+    # host time to decode a request body: the server's decode_image (cv2), and
+    # _decode_png, the decoder of a server without cv2, on the 368x368 body
+    paeth = png_bytes(images[2], filters=(4,), level=6)
+    decode_ms = {}
+    for label, decode, body, img in (
+            ("368x368", decode_image, bodies[0], images[0]),
+            ("640x480", decode_image, bodies[1], images[1]),
+            ("720x1280", decode_image, bodies[2], images[2]),
+            ("720x1280 Paeth rows", decode_image, paeth, images[2]),
+            ("368x368 by _decode_png", _decode_png, bodies[0], images[0])):
+        t0 = time.perf_counter()
+        decoded = decode(body)
+        decode_ms[label] = round((time.perf_counter() - t0) * 1e3, 3)
+        if not np.array_equal(decoded, img):
+            raise AssertionError(f"the {label} body decodes to another image")
+    _say("h", f"host ms to decode a request body: {decode_ms}")
+
+    # 3. serial mode: no batcher, no buckets, one request through process()
+    image = rng.integers(0, 256, (368, 368, 3)).astype(np.uint8)
+    server = serve(served, port=0, max_batch=1)
+    try:
+        status, reply = _post(server, png_bytes(image, "adaptive", level=6))
+    finally:
+        server.shutdown()
+    if server.batcher is not None or status != 200:
+        raise AssertionError(f"serial server: batcher {server.batcher}, status {status}")
+    _same_people(reply["people"], served.process(image)["people"], "the serial server")
+    _say("h", f"serial server (max batch 1, no buckets): one 368x368 request, "
+              f"{len(reply['people'])} people, equal to process(image): pass")
+    return counts
 
 
 def main(parent: str | None = None) -> int:
@@ -1053,9 +1379,14 @@ def main(parent: str | None = None) -> int:
     _say("d", f"BucketedRunner (scale-space readout) on a 640x480 portrait image: bucket "
               f"{bh}x{bw}, {len(got_portrait[0])} people, equal to process_batch on its canvas "
               f"alone; launches {counts_portrait}: pass")
+    # --- h. the serving path ------------------------------------------------------
+    del est_full
+    gc.collect()
+    counts_serve = _serving_phase(torch, np, est, card, rng)
+
     # the training phases start as in a process of their own: no estimator,
     # no cached block of the inference paths
-    del est_full, est
+    del est
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1281,14 +1612,14 @@ def main(parent: str | None = None) -> int:
 
     print("the timings and the training path once more, for a reader of the last lines:",
           flush=True)
-    for line in [line for line in _SAID if line[:3] in ("[e]", "[f]")]:
+    for line in [line for line in _SAID if line[:3] in ("[e]", "[f]", "[h]")]:
         print(line, flush=True)
     kernels = []
     for kern in ops.KERNELS:
         kernels.append({"name": kern.name, "route": "cuda", "source": kern.source,
                         "replaces": kern.replaces,
                         "launches": (counts_infer[kern.name] + counts_train[kern.name]
-                                     + counts_full[kern.name]),
+                                     + counts_full[kern.name] + counts_serve[kern.name]),
                         **record[kern.name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

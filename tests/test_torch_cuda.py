@@ -568,3 +568,78 @@ def test_small_train_step_on_cuda_as_on_cpu(cuda, net_dtype):
     if net_dtype == "float64":
         for k, v in res["cpu"][1].items():
             assert (res["cuda"][1][k] - v).abs().max().item() <= 1e-5, k
+
+
+def _save_pth(est, path):
+    """The estimator's weights as a torch checkpoint of the original release's
+    naming: ``model0.<caffe layer>.weight`` (OIHW) / ``.bias``."""
+    from tpupose_torch.models import weights as weights_lib
+
+    sd = {}
+    for scope, layers in weights_lib.to_flax(est.model.state_dict()).items():
+        for layer, leaves in layers.items():
+            name = weights_lib._flax_name_to_keras(scope, layer)
+            sd[f"model0.{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(leaves["kernel"].transpose(3, 2, 0, 1)))
+            sd[f"model0.{name}.bias"] = torch.from_numpy(leaves["bias"])
+    torch.save(sd, path)
+
+
+def _two_stage_estimator():
+    """2 stages, bf16, scales (0.5, 1.0), the last output convs scaled so that
+    the random network emits peaks (as chip_smoke.py does)."""
+    from tpupose_torch.config import ModelConfig, PoseConfig
+    from tpupose_torch.infer import PoseEstimator
+
+    cfg = PoseConfig(model=ModelConfig(num_stages=2),
+                     inference=InferenceConfig(scale_search=(0.5, 1.0)))
+    est = PoseEstimator(cfg, seed=3, device="cuda")
+    img = np.random.default_rng(5).integers(0, 256, (368, 368, 3)).astype(np.uint8)
+    heat, paf = est.maps(img)
+    with torch.no_grad():
+        for branch, peak in (("stage2_L2", heat[..., :18].abs().max()), ("stage2_L1", paf.abs().max())):
+            head = getattr(est.model, branch).out
+            head.weight.div_(peak)
+            head.bias.div_(peak)
+    return cfg, est
+
+
+def test_pth_loaded_estimator_is_bit_equal_to_the_params_built_one(cuda, tmp_path):
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.models import weights as weights_lib
+
+    cfg, base = _two_stage_estimator()
+    path = str(tmp_path / "w.pth")
+    _save_pth(base, path)
+    from_file = PoseEstimator(cfg, weights_path=path, device="cuda")
+    from_params = PoseEstimator(cfg, params=weights_lib.to_flax(base.model.state_dict()),
+                                device="cuda")
+    assert from_file.pretrained and from_params.pretrained
+    imgs = np.random.default_rng(6).integers(0, 256, (2, 368, 368, 3)).astype(np.uint8)
+    got = from_file.process_batch_async(imgs)[1]
+    want = from_params.process_batch_async(imgs)[1]
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert sum(len(p) for p in PoseEstimator._finish(2, got)) > 0
+
+
+def test_one_request_through_serve_on_the_card_equals_process(cuda):
+    import http.client
+    import json
+
+    from tpupose_torch.serve import serve
+    from tpupose_torch.testing import png_bytes
+
+    _, est = _two_stage_estimator()
+    img = np.random.default_rng(7).integers(0, 256, (368, 368, 3)).astype(np.uint8)
+    srv = serve(est, port=0)
+    try:
+        c = http.client.HTTPConnection(*srv.server_address[:2], timeout=300)
+        c.request("POST", "/pose", body=png_bytes(img))
+        r = c.getresponse()
+        assert r.status == 200
+        people = json.loads(r.read())["people"]
+    finally:
+        srv.shutdown()
+    assert people == json.loads(json.dumps(est.process(img)["people"]))
+    assert len(people) > 0

@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of the JAX package nor of
 jax/flax/optax/orbax, and its own copies of the reference's numpy-only
-modules (config, topology, drawing) cannot drift from them.
+modules (config, topology, drawing, config_io, models/caffe) cannot drift
+from them.
 """
 
 import ast
@@ -46,8 +47,8 @@ def imported_roots(path):
 def test_no_source_of_the_port_imports_the_reference_or_jax():
     files = port_sources()
     assert len(files) > 30 and any(f.endswith("training/loop.py") for f in files)
-    assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py"} <= {
-        os.path.basename(f) for f in files}
+    assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py", "serve.py", "cli.py",
+            "config_io.py", "caffe.py"} <= {os.path.basename(f) for f in files}
     bad = {os.path.relpath(f, ROOT): sorted(imported_roots(f) & FORBIDDEN) for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
 
@@ -59,6 +60,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import tpupose_torch.training.loop, tpupose_torch.data.pipeline\n"
         "import tpupose_torch.gt, tpupose_torch.ops, tpupose_torch.utils.drawing\n"
         "import tpupose_torch.buckets, tpupose_torch.tracking, tpupose_torch.reference_impl\n"
+        "import tpupose_torch.serve, tpupose_torch.cli, tpupose_torch.config_io\n"
+        "import tpupose_torch.models.caffe\n"
         "from tpupose_torch.decode import decode_maps, decode_maps_batch, to_people\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print('LOADED', bad)\n"
@@ -137,3 +140,72 @@ def test_trainer_model_keeps_block1_on_the_convs():
     est = PoseEstimator(dataclasses.replace(
         tconfig.DEFAULT, model=tconfig.ModelConfig(num_stages=1)), device="cpu")
     assert est.model.vgg.pallas_block1 is True
+
+
+# --- the copies of config_io and models/caffe, on the same inputs ----------------------
+def _config_io_cases():
+    from tests import test_config_io as cases
+
+    return {
+        "upstream verbatim": cases.UPSTREAM_VERBATIM,
+        "reference style": cases.REFERENCE_STYLE_INI,
+        "nested subsection": "[models]\n[[1]]\nboxsize = 256\nstride = 4\npadValue = 0\n",
+        "min_num": "[param]\nmin_num = 6\n",
+        "part_str mismatch": "[models]\n[[1]]\npart_str = [head, tail]\n",
+        "part_str match": "[models]\n[[1]]\npart_str = [%s, pt19]\n" % ", ".join(
+            jtopology.PARTS),
+        "partial": "[param]\nscale_search = 1\n",
+        "no section": "key_without_any_section = 1\n",
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_config_io_cases()))
+def test_config_io_copy_reads_every_ini_as_the_reference(tmp_path, case):
+    import warnings
+
+    import tpupose.config_io as jio
+    import tpupose_torch.config_io as tio
+
+    path = tmp_path / "config"
+    path.write_text(_config_io_cases()[case])
+    results = []
+    for mod in (jio, tio):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                res = mod.read_reference_config(str(path))
+                loaded = mod.load_reference_config(str(path))
+            except Exception as e:      # the same failure in both
+                results.append((type(e).__name__, None, None, None, []))
+                continue
+        results.append((dataclasses.asdict(res.config), res.weights_hint, sorted(res.ignored),
+                        dataclasses.asdict(loaded), [w.category.__name__ for w in caught]))
+    assert results[0] == results[1]
+    with pytest.raises(FileNotFoundError):
+        tio.load_reference_config(str(tmp_path / "nope"))
+
+
+@pytest.mark.parametrize("legacy", [False, True])
+def test_caffe_copy_parses_as_the_reference(tmp_path, legacy):
+    import numpy as np
+
+    import tpupose.models.caffe as jcaffe
+    import tpupose_torch.models.caffe as tcaffe
+    from tests.test_torch_weights import _layers, write_caffemodel
+
+    path = str(tmp_path / "w.caffemodel")
+    write_caffemodel(path, _layers(1, seed=9), legacy)
+    want, got = jcaffe.parse_caffemodel(path), tcaffe.parse_caffemodel(path)
+    assert list(got) == list(want)
+    for name in want:
+        assert [b.shape for b in got[name]] == [b.shape for b in want[name]]
+        assert all(np.array_equal(a, b) for a, b in zip(got[name], want[name]))
+    want, got = jcaffe.caffemodel_layers(path), tcaffe.caffemodel_layers(path)
+    assert {n: sorted(v) for n, v in got.items()} == {n: sorted(v) for n, v in want.items()}
+    for name in want:
+        for leaf in want[name]:
+            assert np.array_equal(got[name][leaf], want[name][leaf])
+    blob = np.arange(2 * 3 * 5 * 7, dtype=np.float32).reshape(2, 3, 5, 7)
+    assert np.array_equal(tcaffe.blob_to_kernel(blob), jcaffe.blob_to_kernel(blob))
+    with pytest.raises(ValueError, match="4-D"):
+        tcaffe.blob_to_kernel(blob[0])

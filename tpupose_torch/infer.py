@@ -47,11 +47,15 @@ class PoseEstimator:
 
     ``params``: a flax-layout parameter tree (nested dict of numpy
     arrays, e.g. the reference estimator's ``params``); None builds the
-    flax-default random init from ``seed``.
+    flax-default random init from ``seed`` and overlays ``weights_path``
+    (a reference ``.h5``, ``.caffemodel`` or torch ``.pth``/``.pt``, see
+    ``models.weights.maybe_load_pretrained``) where that file exists.
+    ``pretrained`` says whether the weights came from ``params`` or a file.
     """
 
     def __init__(self, cfg: PoseConfig = DEFAULT, params: Any | None = None,
-                 seed: int = 0, device: str | torch.device = "cuda"):
+                 weights_path: str | None = None, seed: int = 0,
+                 device: str | torch.device = "cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PoseEstimator(device='cuda'): no CUDA device is available")
@@ -67,6 +71,11 @@ class PoseEstimator:
         if params is None:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
             self.pretrained = False
+            if weights_path:
+                params, self.pretrained = weights_lib.maybe_load_pretrained(
+                    weights_lib.to_flax(self.model.state_dict()), weights_path)
+                if self.pretrained:
+                    self.model.load_state_dict(weights_lib.from_flax(params))
         else:
             self.model.load_state_dict(weights_lib.from_flax(params))
             self.pretrained = True

@@ -68,10 +68,18 @@ class CudaKernel:
                 h.update(f.read())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
+    @staticmethod
+    def _tmp_path(lib: str) -> str:
+        """Where nvcc writes before the library is renamed into place: one
+        file per process and thread, so that two builds of one kernel (a
+        server's request threads, say) never write the same file and the
+        rename only ever moves a complete library."""
+        return f"{lib[:-3]}.{os.getpid()}.{threading.get_ident()}.tmp.so"
+
     def compile_command(self) -> tuple[list[str], str]:
         """(nvcc argv writing a temporary file, final library path)."""
         lib = self._lib_path()
-        tmp = f"{lib[:-3]}.{os.getpid()}.tmp.so"
+        tmp = self._tmp_path(lib)
         argv = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
                 os.path.join(CSRC, f"{self.name}.cu")]
         return argv, lib

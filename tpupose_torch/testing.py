@@ -6,9 +6,13 @@ two-person scene from the port's ground-truth rasteriser
 bilinear resize: decoding them must give the two people.
 ``crowded_scene`` does the same for a crowd of 30 or more people in a
 720x1280 frame: the tables the association meets on a crowded frame.
+``png_bytes`` encodes an image as a request body with ``zlib`` alone.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -86,3 +90,43 @@ def crowded_scene(sizes, n_people: int = 32, seed: int = 0, frame: tuple = (720,
         heats.append(low[None, :, :, 38:].contiguous())
         pafs.append(low[None, :, :, :38].contiguous())
     return heats, pafs, joints
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def png_bytes(image: np.ndarray, filters=(0, 1, 2), level: int = 1) -> bytes:
+    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG, deflated at ``level``. Row y
+    is filtered with ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth), or with ``filters="adaptive"`` as libpng chooses
+    by default: the filter whose bytes, read as signed, sum to the least
+    magnitude, the first of 0..4 on a tie (what ``cv2.imencode`` writes
+    when given a compression level)."""
+    rgb = np.ascontiguousarray(np.asarray(image, np.uint8)[:, :, ::-1]).astype(np.int32)
+    h, w, bpp = rgb.shape
+    rows = rgb.reshape(h, w * bpp)
+    out = bytearray()
+    for y in range(h):
+        x = rows[y]
+        up = rows[y - 1] if y else np.zeros_like(x)
+        left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+        up_left = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+        preds = (0, left, up, (left + up) // 2, _paeth(left, up, up_left))
+        if filters == "adaptive":
+            residuals = [(x - pred) % 256 for pred in preds]
+            kind = int(np.argmin([np.minimum(r, 256 - r).sum() for r in residuals]))
+        else:
+            kind = filters[y % len(filters)]
+        out.append(kind)
+        out += ((x - preds[kind]) % 256).astype(np.uint8).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(out), level)) + chunk(b"IEND", b""))
