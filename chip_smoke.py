@@ -126,8 +126,30 @@ exits non-zero):
      outputs, not an image: no image drives the seeded network to it, so
      the requests are seeded random images and the heads are scaled as in
      phase d so that they decode people.)
+  i. the data path (its eval half after phase h, on phase d's estimator's
+     weights saved as a checkpoint; its training half after phase e's
+     timings): the host libraries of tpupose_torch/native built into
+     tpupose_torch/_build; a COCO keypoint set synthesised from a seed
+     (testing.coco_keypoint_set: 24 PNGs of 368x368, 640x480 and 720x1280,
+     1-4 persons each, a polygon crowd, an RLE crowd, an unannotated image)
+     packed by `prepare` to .tpr (records/s shown) and pre-padded to
+     368x368 by pack_tpr; `eval --annotations/--images` (with
+     --coco-results) and `eval --dataset` print the JSON of
+     coco_eval.evaluate over process() of the same images by an estimator
+     built the same way, and `eval --dataset --buckets default --eval-batch
+     8` that of a BucketedRunner at batch 8 (the same device batches); the
+     set's GT as detections scores AP 1.0; block1, pyramid_peaks, sample and
+     assoc launched, gt and peaks not; images/s. `train --dataset` (the
+     pre-padded file) 10 steps of the default configuration with clip_norm
+     5: 13 finite losses a step, gt launched 10 times and nothing else; the
+     checkpoint at step 5 holds the feed's position, and a second `train`
+     from it to step 10 takes the same batches (arrays equal) and reaches
+     the same parameters bit for bit as the uninterrupted run; `finetune` 3
+     steps leaves every vgg tensor bit-identical; TprBatches records/s at
+     threads=8 beside the trainer's samples/s fed from it, and its steps/s
+     beside phase e's on synthetic_batches.
 
-The phase e, f and h lines are printed once more at the end; the last three
+The phase e, f, h and i lines are printed once more at the end; the last three
 lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero before
@@ -498,7 +520,8 @@ def _serving_phase(torch, np, est, card: str, rng) -> dict:
                 break
             time.sleep(0.01)
         health = _get(server, "/healthz")
-        bad = {"1-byte body": _post(server, b"x")[0], "unknown path": _post(server, b"x", "/x")[0]}
+        bad = {"1-byte body": _post(server, b"x")[0], "unknown path": _post(server, b"x", "/x")[0],
+               "unknown path, 8 MiB body": _post(server, b"x" * (8 << 20), "/x")[0]}
         import http.client
 
         conn = http.client.HTTPConnection(*server.server_address[:2], timeout=60)
@@ -536,7 +559,8 @@ def _serving_phase(torch, np, est, card: str, rng) -> dict:
         raise AssertionError(f"/healthz: {health}")
     if not (metrics["requests"] == 32 and metrics["errors"] == 0 and metrics["mean_batch"] > 1):
         raise AssertionError(f"/metrics: {metrics}")
-    if bad != {"1-byte body": 400, "unknown path": 404, "body over 32 MiB": 413}:
+    if bad != {"1-byte body": 400, "unknown path": 404, "unknown path, 8 MiB body": 404,
+               "body over 32 MiB": 413}:
         raise AssertionError(f"error statuses: {bad}")
     kernels = ("block1", "pyramid_peaks", "sample", "assoc")
     if min(counts[k] for k in kernels) < 1 or counts["gt"] or counts["peaks"]:
@@ -600,6 +624,284 @@ def _serving_phase(torch, np, est, card: str, rng) -> dict:
     _same_people(reply["people"], served.process(image)["people"], "the serial server")
     _say("h", f"serial server (max batch 1, no buckets): one 368x368 request, "
               f"{len(reply['people'])} people, equal to process(image): pass")
+    return counts
+
+
+def _cli_json(cli, argv: list) -> dict:
+    """Run ``cli.main(argv)``; the JSON object its last stdout line prints."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"tpupose-torch {' '.join(argv[:1])} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _data_eval_phase(torch, np, est, card: str, data_dir: str) -> tuple[dict, dict]:
+    """Phase i, its first half: a synthetic COCO keypoint set packed to .tpr
+    by ``prepare`` (and pre-padded by ``pack_tpr``), then ``eval`` of the
+    command line with and without buckets. ``est`` is phase d's seeded
+    full-width estimator with its output convolutions scaled, so that people
+    are decoded; the CLI loads its weights from a checkpoint. Returns the
+    launches during the evals and the files for the training half."""
+    import argparse
+    import contextlib
+    import io
+
+    from tpupose_torch import cli as tcli
+    from tpupose_torch import ops
+    from tpupose_torch.buckets import BucketedRunner, resolve_buckets
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.data import coco_eval, pack_tpr, rle, tpr
+    from tpupose_torch.data.coco_prep import people_to_coco_results
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.testing import coco_keypoint_set, people_from_gt
+    from tpupose_torch.training import checkpoint as ckpt_lib
+
+    build_dir = os.path.join(ROOT, "tpupose_torch", "_build")
+    for name, mod in (("rle", rle), ("tpr", tpr)):
+        if not mod.native_available() or os.path.dirname(mod._load()._name) != build_dir:
+            raise AssertionError(f"{name}: the host library is not built into {build_dir}")
+    shapes = [(368, 368), (640, 480), (720, 1280)] * 8
+    ann, images = coco_keypoint_set(data_dir, shapes, seed=0)
+    raw, fast = os.path.join(data_dir, "coco.tpr"), os.path.join(data_dir, "coco368.tpr")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        if tcli.main(["prepare", "--annotations", ann, "--images", images, "--output", raw]):
+            raise AssertionError("prepare failed")
+    prep_s = time.perf_counter() - t0
+    n_rec = tpr.num_samples(raw)
+    if said.getvalue().strip() != f"packed {n_rec} records -> {raw}":
+        raise AssertionError(f"prepare printed {said.getvalue()!r}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pack_tpr.main(["--input", raw, "--output", fast, "--pre-pad", "368", "368",
+                       "--max-persons", str(DEFAULT.augment.max_persons)])
+    pad_s = time.perf_counter() - t0
+    with tpr.TprReader(fast) as r:
+        if not (r.static_shapes and r.count == n_rec and r.dims(0) == (368, 368)):
+            raise AssertionError("the pre-padded file is not 368x368 throughout")
+    _say("i", f"host libraries rle and tpufeed built from tpupose_torch/native into "
+              f"tpupose_torch/_build; {len(shapes)} images (368x368, 640x480, 720x1280; a "
+              f"polygon crowd, an RLE crowd, an unannotated image) -> prepare: {n_rec} records "
+              f"in {prep_s:.3f} s ({n_rec / prep_s:.1f} records/s, host); pack_tpr --pre-pad "
+              f"368 368: {n_rec / pad_s:.1f} records/s ({card})")
+
+    # the estimator's weights as a checkpoint, which the command line loads
+    ckpt = os.path.join(data_dir, "weights")
+    ckpt_lib.save(ckpt, {"params": est.model.state_dict(),
+                         "opt_state": {"count": 0, "mini_step": 0}, "step": 0})
+    twin = PoseEstimator(DEFAULT, params=ckpt_lib.restore_params(ckpt), device="cuda")
+    results = os.path.join(data_dir, "results.json")
+    sources = {
+        "annotations": ["--annotations", ann, "--images", images, "--coco-results", results],
+        "dataset": ["--dataset", raw],
+    }
+    ops.reset_launch_counts()
+    printed = {key: _cli_json(tcli, ["eval", *argv, "--checkpoint", ckpt])
+               for key, argv in sources.items()}
+    printed["buckets"] = _cli_json(tcli, ["eval", "--dataset", raw, "--checkpoint", ckpt,
+                                          "--buckets", "default", "--eval-batch", "8"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if (min(counts[k] for k in ("block1", "pyramid_peaks", "sample", "assoc")) < 1
+            or counts["gt"] or counts["peaks"]):
+        raise AssertionError(f"launches over eval: {counts}")
+
+    for key in ("annotations", "dataset"):
+        inputs = list(tcli._eval_inputs(argparse.Namespace(
+            annotations=ann if key == "annotations" else None, images=images, dataset=raw)))
+        gts = [gt for _, gt, _ in inputs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = [twin.process(image)["people"] for image, _, _ in inputs]
+        per_image_s = (time.perf_counter() - t0) / len(inputs)
+        want = coco_eval.evaluate(preds, gts)
+        if printed[key] != want:
+            raise AssertionError(f"eval --{key}: {printed[key]} != {want}")
+        truth = coco_eval.evaluate([people_from_gt(gt) for gt in gts], gts)
+        if truth["AP"] != 1.0:
+            raise AssertionError(f"eval --{key}: the GT as detections scores {truth}")
+        if key == "annotations":
+            with open(results) as f:
+                written = json.load(f)
+            expected = [r for (_, _, image_id), people in zip(inputs, preds)
+                        for r in people_to_coco_results(people, image_id=image_id)]
+            if written != json.loads(json.dumps(expected)):
+                raise AssertionError("--coco-results differs from people_to_coco_results")
+        _say("i", f"eval --{key} ({len(inputs)} images, {sum(map(len, preds))} people): the "
+                  f"printed JSON equals coco_eval.evaluate over process() of each image (AP "
+                  f"{want['AP']:.4f}); the set's GT as detections scores AP 1.0"
+                  + ("; --coco-results holds people_to_coco_results' records"
+                     if key == "annotations" else "")
+                  + f"; process() {1.0 / per_image_s:.2f} images/s ({card})")
+    # the loop above ended on the dataset's records: the same images and GT
+    runner = BucketedRunner(twin, resolve_buckets("default"), batch_size=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for image, _, _ in inputs:
+        runner.add(image)
+    preds = runner.finish()
+    torch.cuda.synchronize()
+    bucket_s = time.perf_counter() - t0
+    want = coco_eval.evaluate(preds, gts)
+    if printed["buckets"] != want:
+        raise AssertionError(f"eval --buckets: {printed['buckets']} != {want}")
+    _say("i", f"eval --dataset --buckets default --eval-batch 8 ({len(inputs)} images, "
+              f"{sum(map(len, preds))} people): the printed JSON equals coco_eval.evaluate over "
+              f"a BucketedRunner at batch 8 (AP {want['AP']:.4f}); "
+              f"{len(inputs) / bucket_s:.2f} images/s (host clock, the runner alone); "
+              f"launches over the three evals {counts} ({card})")
+    del twin, runner
+    return counts, {"fast": fast, "n_rec": n_rec}
+
+
+def _data_train_phase(torch, np, card: str, data_dir: str, files: dict,
+                      synthetic_steps_per_s: float) -> dict:
+    """Phase i, its second half: ``train`` and ``finetune`` of the command
+    line from the pre-padded file at full width, with the resume and
+    frozen-VGG checks, and the feed's rate beside the step's. Returns the
+    launches of the uninterrupted 10-step run."""
+    import contextlib
+    import csv
+    import dataclasses
+    import io
+
+    from tpupose_torch import cli as tcli
+    from tpupose_torch import config as tconfig
+    from tpupose_torch import ops
+    from tpupose_torch.data import pipeline
+    from tpupose_torch.models import OpenPose
+    from tpupose_torch.models import weights as weights_lib
+    from tpupose_torch.training import checkpoint as ckpt_lib
+    from tpupose_torch.training import create_state, make_train_step
+    from tpupose_torch.training.loop import step_generator
+
+    default = tconfig.DEFAULT
+    cfg = dataclasses.replace(default, train=dataclasses.replace(
+        default.train, clip_norm=5.0, log_every=1, checkpoint_every=5))
+    n_b = cfg.train.batch_size
+    fast = files["fast"]
+    consumed: list = []
+    dataset_batches = pipeline.dataset_batches
+
+    def spied(path, c, **kw):          # records every batch the trainer takes
+        feed = dataset_batches(path, c, **kw)
+
+        class Spy(type(feed)):
+            def __next__(self):
+                b = super().__next__()
+                consumed.append(b)
+                return b
+
+        feed.__class__ = Spy
+        return feed
+
+    def train(command, workdir, steps):
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = tcli.main([command, "--dataset", fast, "--workdir", workdir,
+                            "--max-steps", str(steps)])
+        if rc != 0:
+            raise AssertionError(f"{command} exited {rc}")
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    tconfig.DEFAULT, pipeline.dataset_batches = cfg, spied
+    torch.backends.cudnn.deterministic = True        # for the bit-equal resume
+    try:
+        whole, part = os.path.join(data_dir, "whole"), os.path.join(data_dir, "part")
+        ops.reset_launch_counts()
+        ran = train("train", whole, 10)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts["gt"] != 10 or any(v for k, v in counts.items() if k != "gt"):
+            raise AssertionError(f"launches over 10 train steps from the file: {counts}")
+        with open(os.path.join(whole, "training.csv")) as f:
+            rows = list(csv.DictReader(f))
+        n_losses = 2 * cfg.model.num_stages + 1          # 13 at full width
+        if len(rows) != 10 or any(len(r) != n_losses + 1 or not np.isfinite(
+                [float(v) for k, v in r.items() if k != "step"]).all() for r in rows):
+            raise AssertionError(f"train: the logged losses {rows}")
+        uninterrupted, consumed[:] = list(consumed), []
+        train("train", part, 5)
+        with np.load(os.path.join(part, cfg.train.checkpoint_dir, "step_000000005.npz")) as f:
+            position = json.loads(f["data_state"].tobytes())
+        first, consumed[:] = list(consumed), []
+        resumed = train("train", part, 10)
+        if resumed["steps"] != 5 or len(consumed) != 5:
+            raise AssertionError(f"the resumed run took {resumed['steps']} steps")
+        for i, (a, b) in enumerate(zip(first + consumed, uninterrupted)):
+            if any(not np.array_equal(a[k], b[k]) for k in b):
+                raise AssertionError(f"the resumed run's batch {i + 1} differs")
+        got, want = (ckpt_lib.restore_params(os.path.join(d, cfg.train.checkpoint_dir))
+                     for d in (part, whole))
+        for scope, layers in want.items():
+            for layer, leaves in layers.items():
+                for leaf, arr in leaves.items():
+                    if not np.array_equal(got[scope][layer][leaf], arr):
+                        raise AssertionError(f"resume: {scope}/{layer}/{leaf} differs at step 10")
+        _say("i", f"train --dataset (pre-padded .tpr, {files['n_rec']} records) 10 steps, batch "
+                  f"{n_b}, {cfg.model.compute_dtype}, clip_norm 5.0: {n_losses} finite losses per step "
+                  f"(total {float(rows[0]['total']):.4f} -> {float(rows[-1]['total']):.4f}); "
+                  f"launches {counts}; the checkpoint at step 5 holds the feed position "
+                  f"{position}; a second train from it to step 10 takes the same batches "
+                  f"(arrays equal) and reaches the same parameters bit for bit: pass")
+        frozen = os.path.join(data_dir, "frozen")
+        train("finetune", frozen, 3)
+        model = OpenPose(num_stages=cfg.model.num_stages, dtype=torch.bfloat16)
+        model.reset_parameters(torch.Generator().manual_seed(0))       # loop.train's init
+        start = weights_lib.to_flax(model.state_dict())
+        end = ckpt_lib.restore_params(os.path.join(frozen, cfg.train.checkpoint_dir))
+        for layer, leaves in start["vgg"].items():
+            for leaf, arr in leaves.items():
+                if not np.array_equal(end["vgg"][layer][leaf], arr):
+                    raise AssertionError(f"finetune: vgg/{layer}/{leaf} changed")
+        moved = np.abs(end["stage2_L1"]["conv1"]["kernel"]
+                       - start["stage2_L1"]["conv1"]["kernel"]).max()
+        if not moved > 0:
+            raise AssertionError("finetune: stage2_L1/conv1 did not move")
+        _say("i", f"finetune --dataset 3 steps: {len(start['vgg'])} vgg layers bit-identical, "
+                  f"stage2_L1/conv1 moved by {moved:.3e}: pass")
+    finally:
+        tconfig.DEFAULT, pipeline.dataset_batches = default, dataset_batches
+        torch.backends.cudnn.deterministic = False
+    del consumed[:], uninterrupted, first
+
+    # the feed alone, then the trainer fed from it
+    feed = pipeline.tpr_batches(fast, cfg, threads=8)
+    next(feed)
+    t0 = time.perf_counter()
+    n_feed = 30
+    for _ in range(n_feed):
+        next(feed)
+    feed_rate = n_feed * n_b / (time.perf_counter() - t0)
+    feed.close()
+    model = OpenPose(num_stages=cfg.model.num_stages, dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state, tx = create_state(cfg, model.state_dict(), "cuda")
+    step_fn = make_train_step(cfg, model, tx, loss_denom=n_b)
+    tree = state.tree()
+    feed = pipeline.tpr_batches(fast, cfg, threads=8)
+    for i in range(2):
+        tree, _ = step_fn(tree, step_generator(1, i), next(feed))
+    torch.cuda.synchronize()
+    windows = []
+    for win in range(5):
+        t = time.perf_counter()
+        for i in range(8):
+            tree, _ = step_fn(tree, step_generator(1, 2 + win * 8 + i), next(feed))
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t) / 8)
+    feed.close()
+    step_s = sorted(windows)[2]
+    _say("i", f"TprBatches at threads=8 alone: {feed_rate:.1f} records/s (host); the trainer fed "
+              f"from it: {1.0 / step_s:.3f} steps/s = {n_b / step_s:.1f} samples/s (median of 5 "
+              f"windows of 8 steps: {' / '.join(f'{v * 1e3:.2f}' for v in windows)} ms), against "
+              f"{synthetic_steps_per_s:.3f} steps/s on synthetic_batches (phase e); the feed "
+              f"{'keeps up with' if feed_rate >= n_b / step_s else 'falls behind'} the step "
+              f"({card})")
     return counts
 
 
@@ -1384,6 +1686,16 @@ def main(parent: str | None = None) -> int:
     gc.collect()
     counts_serve = _serving_phase(torch, np, est, card, rng)
 
+    # --- i. the data path: prepare, eval (on phase d's estimator's weights) -------
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        counts_eval, data_files = _data_eval_phase(torch, np, est, card, data_dir)
+    except BaseException:
+        import shutil
+
+        shutil.rmtree(data_dir, ignore_errors=True)
+        raise
+
     # the training phases start as in a process of their own: no estimator,
     # no cached block of the inference paths
     del est
@@ -1609,17 +1921,30 @@ def main(parent: str | None = None) -> int:
               f"after a first window of {first_s * 1e3:.2f} ms); device ms: augment {aug_ms:.3f}, GT kernel "
               f"{gt_ms:.4f}, forward + backward {fb_ms:.2f}, update {upd_ms:.3f}; peak memory "
               f"{train_gb:.2f} GiB ({card})")
+    del tree, state, grads, model, step_fn, x_norm, images_a, label_mask, joints_a, paf_gt, heat_gt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- i. the data path: train and finetune from the pre-padded file ------------
+    try:
+        counts_data_train = _data_train_phase(torch, np, card, data_dir, data_files,
+                                              1.0 / step_s)
+    finally:
+        import shutil
+
+        shutil.rmtree(data_dir, ignore_errors=True)
 
     print("the timings and the training path once more, for a reader of the last lines:",
           flush=True)
-    for line in [line for line in _SAID if line[:3] in ("[e]", "[f]", "[h]")]:
+    for line in [line for line in _SAID if line[:3] in ("[e]", "[f]", "[h]", "[i]")]:
         print(line, flush=True)
     kernels = []
     for kern in ops.KERNELS:
         kernels.append({"name": kern.name, "route": "cuda", "source": kern.source,
                         "replaces": kern.replaces,
                         "launches": (counts_infer[kern.name] + counts_train[kern.name]
-                                     + counts_full[kern.name] + counts_serve[kern.name]),
+                                     + counts_full[kern.name] + counts_serve[kern.name]
+                                     + counts_eval[kern.name] + counts_data_train[kern.name]),
                         **record[kern.name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

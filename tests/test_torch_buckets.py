@@ -31,7 +31,9 @@ from tpupose.reference_impl import decode_np as jdecode_np
 from tpupose_torch.infer import PoseEstimator
 from tpupose_torch.ops import image as timage
 from tpupose_torch.reference_impl import decode_np as tdecode_np
-from tpupose_torch.testing import planted_scene
+from tpupose_torch.testing import limit_threads, planted_scene
+
+limit_threads()
 
 SHAPES = [(368, 368), (300, 400), (480, 640), (640, 480), (1080, 1920), (200, 900), (37, 41),
           (656, 496), (700, 100)]

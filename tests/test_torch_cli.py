@@ -12,6 +12,19 @@ which a full file replaces leaf for leaf, runs the network eagerly at
 convert-weights then export-weights gives back the file's arrays bit for
 bit; the --config and exit-2 paths and the --max-peaks ladders are those of
 tests/test_cli.py; demo-video runs a 4-frame clip.
+
+The data path: prepare writes the reference CLI's .tpr file byte for byte
+from a synthetic COCO set (testing.coco_keypoint_set: a polygon crowd, an
+RLE crowd, an unannotated image); eval over it (--dataset, and
+--annotations/--images from a checkpoint of convert-weights) prints the
+reference CLI's JSON exactly, on a 2-stage estimator at boxsize 64 (f32;
+one JAX estimator serves every reference run: one compile), and
+--coco-results writes its records (coordinates equal, scores within
+rtol 1e-5, atol 1e-4); the set's GT as detections scores AP 1.0. train
+and finetune take 2 steps from a pre-padded .tpr file (2 stages, boxsize
+64, batch 2); a run stopped after step 1 and resumed takes the same step
+2, bit for bit, its feed position restored from the checkpoint; finetune
+leaves every vgg tensor bit-identical.
 """
 
 import dataclasses
@@ -33,6 +46,12 @@ import tpupose_torch.config as tconfig
 from tests.test_torch_weights import _jax_tree, _layers, _write, assert_same_people
 from tpupose.models import weights as jweights
 from tpupose_torch import topology
+from tpupose_torch.data import coco_eval as tcoco_eval
+from tpupose_torch.data import pack_tpr
+from tpupose_torch.testing import coco_keypoint_set, people_from_gt
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 JaxEstimator = jinfer.PoseEstimator
 # --max-peaks 32: ladders (8, 16) and (16,); at the default 96 the JAX decode's
@@ -82,10 +101,13 @@ def _people(stdout: str) -> list:
 
 
 def test_help_lists_exactly_the_four_commands(capsys):
+    """The commands whose modules the port holds: the four of the serving
+    path and, since the data path, prepare, train, finetune and eval."""
     rc, out, _ = _run(tcli, ["--help"], capsys)
     assert rc == 0
     usage = out[out.index("{"):out.index("}") + 1]
-    assert usage == "{demo-image,demo-video,convert-weights,export-weights}"
+    assert usage == ("{demo-image,demo-video,prepare,train,finetune,eval,convert-weights,"
+                     "export-weights}")
 
 
 def test_demo_image_prints_the_reference_cli_people(files, f32_defaults, monkeypatch, capsys,
@@ -253,3 +275,176 @@ def test_demo_video_tracking_stable_ids(tmp_path, monkeypatch, capsys):
     assert fake.calls == 5 and len(seen_ids) == 5
     assert all(len(ids) == 1 for ids in seen_ids) and len({ids[0] for ids in seen_ids}) == 1
     assert _frames(out) == 5
+
+
+# --- the data path: prepare, eval, train, finetune ------------------------------------------
+EVAL_MODEL = ["--stages", "2", "--boxsize", "64", "--scales", "1", "--max-peaks", "32"]
+
+
+def _call(cli, argv) -> tuple[int, str]:
+    """cli.main(argv) outside a test's capsys (module fixtures): rc, stdout."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def coco(tmp_path_factory):
+    """The synthetic COCO set (one image shape: one JAX compile), the
+    reference CLI's prepare of it, and a 2-stage weight file whose heads
+    make the random network decode people."""
+    d = tmp_path_factory.mktemp("coco")
+    ann, images = coco_keypoint_set(str(d), [(96, 128)] * 6, seed=3)
+    ref_tpr = str(d / "ref.tpr")
+    rc, out = _call(jcli, ["prepare", "--annotations", ann, "--images", images,
+                           "--output", ref_tpr])
+    assert rc == 0 and "packed" in out
+    return {"ann": ann, "images": images, "ref_tpr": ref_tpr, "dir": d,
+            "h5": _write(d, "h5", _layers(2, seed=6, head_gain=1000.0))}
+
+
+@pytest.fixture(scope="module")
+def reference_eval(coco):
+    """The JAX CLI's eval: --dataset (its prepare's file) and --annotations
+    with --coco-results, both through one JAX estimator of the h5 file."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jconfig, "DEFAULT", dataclasses.replace(
+            jconfig.DEFAULT, model=dataclasses.replace(jconfig.DEFAULT.model,
+                                                       compute_dtype="float32")))
+        rc, _ = _call(jcli, ["eval", "--annotations", coco["ann"]])       # exit 2, no model
+        assert rc == 2
+        parser_args = jcli.argparse.Namespace(
+            config=None, scales="1", boxsize=64, stages=2, decode_groups=None, max_peaks=32)
+        est = _jax_estimator_from_params(jcli._config(parser_args), coco["h5"])
+        mp.setattr(jcli, "_estimator", lambda args, cfg=None: est)
+        results = str(coco["dir"] / "ref_results.json")
+        out = {}
+        for key, argv in (("dataset", ["--dataset", coco["ref_tpr"]]),
+                          ("annotations", ["--annotations", coco["ann"], "--images",
+                                           coco["images"], "--coco-results", results])):
+            rc, stdout = _call(jcli, ["eval", *argv, "--weights", coco["h5"], *EVAL_MODEL])
+            assert rc == 0
+            out[key] = json.loads(stdout)
+    with open(results) as f:
+        out["coco_results"] = json.load(f)
+    return out
+
+
+def test_prepare_writes_the_reference_clis_file(coco, capsys, tmp_path):
+    port_tpr = str(tmp_path / "port.tpr")
+    rc, out, err = _run(tcli, ["prepare", "--annotations", coco["ann"], "--images",
+                               coco["images"], "--output", port_tpr], capsys)
+    assert rc == 0 and out.startswith("packed "), err
+    with open(port_tpr, "rb") as a, open(coco["ref_tpr"], "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_eval_prints_the_reference_clis_json(coco, reference_eval, f32_defaults, capsys,
+                                             tmp_path):
+    rc, out, err = _run(tcli, ["eval", "--dataset", coco["ref_tpr"], "--weights", coco["h5"],
+                               *EVAL_MODEL, "--device", "cpu"], capsys)
+    assert rc == 0, err
+    assert json.loads(out) == reference_eval["dataset"]
+    # --annotations, through a checkpoint of the port's converter
+    ckpt, results = str(tmp_path / "ckpt"), str(tmp_path / "results.json")
+    rc, _, err = _run(tcli, ["convert-weights", "--weights", coco["h5"], "--output", ckpt,
+                             "--stages", "2"], capsys)
+    assert rc == 0, err
+    rc, out, err = _run(tcli, ["eval", "--annotations", coco["ann"], "--images", coco["images"],
+                               "--checkpoint", ckpt, *EVAL_MODEL, "--device", "cpu",
+                               "--coco-results", results], capsys)
+    assert rc == 0, err
+    got = json.loads(out)
+    assert got == reference_eval["annotations"] and got["AP"] >= 0.0
+    with open(results) as f:
+        records = json.load(f)
+    want = reference_eval["coco_results"]
+    assert len(records) == len(want) > 12
+    assert sorted({r["image_id"] for r in records}) == list(range(1000, 1006))
+    for a, b in zip(records, want):
+        assert (a["image_id"], a["category_id"]) == (b["image_id"], b["category_id"])
+        np.testing.assert_allclose(a["score"], b["score"], rtol=1e-5, atol=1e-4)
+        ka, kb = np.asarray(a["keypoints"]).reshape(17, 3), np.asarray(b["keypoints"]).reshape(17, 3)
+        assert np.array_equal(ka[:, :2], kb[:, :2])
+        np.testing.assert_allclose(ka[:, 2], kb[:, 2], rtol=1e-5, atol=1e-4)
+
+
+def test_the_sets_gt_as_detections_scores_ap_1(coco):
+    import argparse
+
+    for source in (dict(annotations=coco["ann"], images=coco["images"]),
+                   dict(annotations=None, dataset=coco["ref_tpr"])):
+        gts = [gt for _, gt, _ in tcli._eval_inputs(argparse.Namespace(**source))]
+        assert len(gts) >= 6 and any(g.get("iscrowd") for gt in gts for g in gt)
+        res = tcoco_eval.evaluate([people_from_gt(gt) for gt in gts], gts)
+        assert res["AP"] == res["AP50"] == res["AR"] == 1.0
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--dataset", "x.tpr", "--annotations", "a.json"], "mutually exclusive"),
+    ([], "one of --dataset or --annotations is required"),
+    (["--annotations", "a.json"], "--annotations requires --images"),
+])
+def test_eval_exit_2_error_paths(capsys, argv, message):
+    rc, out, err = _run(tcli, ["eval", *argv, "--device", "cpu"], capsys)
+    assert rc == 2 and message in err and out == ""
+
+
+@pytest.fixture(scope="module")
+def train_file(coco, tmp_path_factory):
+    fast = str(tmp_path_factory.mktemp("train") / "fast.tpr")
+    assert pack_tpr.main(["--input", coco["ref_tpr"], "--output", fast, "--pre-pad", "368",
+                          "368", "--max-persons", "24"]) == 0
+    return fast
+
+
+TRAIN = ["--stages", "2", "--boxsize", "64", "--batch-size", "2", "--device", "cpu"]
+
+
+def test_train_resumes_its_step_and_feed_position_bit_for_bit(train_file, f32_defaults, capsys,
+                                                              tmp_path):
+    from tpupose_torch.training import checkpoint
+
+    def train(workdir, steps):
+        rc, out, err = _run(tcli, ["train", "--dataset", train_file, "--workdir", workdir,
+                                   "--max-steps", str(steps), *TRAIN], capsys)
+        assert rc == 0, err
+        return json.loads(out)
+
+    whole, part = str(tmp_path / "whole"), str(tmp_path / "part")
+    two = train(whole, 2)
+    assert two["steps"] == 2 and len(two["last_losses"]) == 5
+    assert train(part, 1)["steps"] == 1
+    with np.load(os.path.join(part, "checkpoints", "step_000000001.npz")) as f:
+        assert json.loads(f["data_state"].tobytes()) == {"epoch": 0, "offset": 2, "version": 1}
+    resumed = train(part, 2)
+    assert resumed["steps"] == 1 and resumed["last_losses"] == two["last_losses"]
+    want, got = (checkpoint.restore_params(os.path.join(d, "checkpoints")) for d in (whole, part))
+    for scope, layers in want.items():
+        for layer, leaves in layers.items():
+            for leaf, arr in leaves.items():
+                assert np.array_equal(got[scope][layer][leaf], arr), (scope, layer, leaf)
+
+
+def test_finetune_leaves_every_vgg_tensor_bit_identical(train_file, f32_defaults, capsys,
+                                                        tmp_path):
+    from tpupose_torch.models import OpenPose
+    from tpupose_torch.models import weights as tweights
+    from tpupose_torch.training import checkpoint
+
+    rc, out, err = _run(tcli, ["finetune", "--dataset", train_file, "--workdir", str(tmp_path),
+                               "--max-steps", "2", *TRAIN], capsys)
+    assert rc == 0 and json.loads(out)["steps"] == 2, err
+    model = OpenPose(num_stages=2, dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(0))         # loop.train's init
+    start = tweights.to_flax(model.state_dict())
+    end = checkpoint.restore_params(str(tmp_path / "checkpoints"))
+    for layer, leaves in start["vgg"].items():
+        for leaf, arr in leaves.items():
+            assert np.array_equal(end["vgg"][layer][leaf], arr), (layer, leaf)
+    assert not np.array_equal(end["stage2_L1"]["conv1"]["kernel"],
+                              start["stage2_L1"]["conv1"]["kernel"])

@@ -25,6 +25,9 @@ from tpupose_torch.ops.assoc import assoc, assoc_plain
 from tpupose_torch.ops.block1 import block1, block1_plain
 from tpupose_torch.ops.pyramid_peaks import pyramid_peak_scores, pyramid_peak_scores_plain
 from tpupose_torch.ops.sample import sample_avg, sample_avg_plain
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 pytestmark = pytest.mark.cuda
 SIZES = image.scale_sizes(368, 368, (0.5, 1.0, 1.5, 2.0), 368, 8)

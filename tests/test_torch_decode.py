@@ -24,7 +24,9 @@ from tpupose_torch.decode.api import decode_impl_batch as t_decode
 from tpupose_torch.decode.api import to_people
 from tpupose_torch.decode.scalespace import ScaleSpace as TSpace
 from tpupose_torch.ops.pyramid_peaks import pyramid_peak_scores
-from tpupose_torch.testing import crowded_scene, planted_scene
+from tpupose_torch.testing import crowded_scene, limit_threads, planted_scene
+
+limit_threads()
 
 # max_peaks=16 with an 8-slot compaction tier keeps the reference's
 # batch-global overflow guard active (it runs only when a tier exists)

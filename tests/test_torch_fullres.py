@@ -52,7 +52,9 @@ from tpupose_torch.infer import PoseEstimator
 from tpupose_torch.ops import image as timage
 from tpupose_torch.ops.peaks import find_peaks_kernel, peak_scores, peak_scores_plain
 from tpupose_torch.reference_impl import decode_np as tdecode_np
-from tpupose_torch.testing import planted_scene
+from tpupose_torch.testing import limit_threads, planted_scene
+
+limit_threads()
 
 # max_peaks=16 with an 8-slot compaction tier keeps the reference's
 # batch-global overflow guard active (it runs only when a tier exists)

@@ -29,6 +29,9 @@ from tpupose_torch.config import AugmentConfig, ModelConfig
 from tpupose_torch.gt import augment as TA
 from tpupose_torch.gt import rasterize as TR
 from tpupose_torch.ops.gt import create_labels_plain
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 WARP_ATOL = 1e-4
 # The two packages' affines differ by an f32 ulp of translations of a few

@@ -12,6 +12,9 @@ import torch
 from tpupose.config import DEFAULT
 from tpupose.ops import image as jimg
 from tpupose_torch.ops import image as timg
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 SCALES = (0.5, 1.0, 1.5, 2.0)
 

@@ -1,7 +1,9 @@
 """The port stands alone: it imports nothing of the JAX package nor of
-jax/flax/optax/orbax, and its own copies of the reference's numpy-only
-modules (config, topology, drawing, config_io, models/caffe) cannot drift
-from them.
+jax/flax/optax/orbax/grain, ``import tpupose_torch`` (and its data path)
+loads neither h5py nor cv2, and its own copies of the reference's
+numpy-only modules (config, topology, drawing, config_io, models/caffe,
+the data path's coco_eval, coco_prep, hdf5, tpr, pipeline, pack_tpr and
+the C sources of its host libraries) cannot drift from them.
 """
 
 import ast
@@ -20,9 +22,12 @@ import tpupose_torch.config as tconfig
 import tpupose_torch.topology as ttopology
 import tpupose_torch.utils.drawing as tdrawing
 from tpupose_torch.ops import block1 as block1_mod
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"tpupose", "jax", "jaxlib", "flax", "optax", "orbax"}
+FORBIDDEN = {"tpupose", "jax", "jaxlib", "flax", "optax", "orbax", "grain"}
 
 
 def port_sources():
@@ -48,7 +53,8 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
     files = port_sources()
     assert len(files) > 30 and any(f.endswith("training/loop.py") for f in files)
     assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py", "serve.py", "cli.py",
-            "config_io.py", "caffe.py"} <= {os.path.basename(f) for f in files}
+            "config_io.py", "caffe.py", "coco_eval.py", "coco_prep.py", "hdf5.py", "tpr.py",
+            "rle.py", "pack_tpr.py"} <= {os.path.basename(f) for f in files}
     bad = {os.path.relpath(f, ROOT): sorted(imported_roots(f) & FORBIDDEN) for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
 
@@ -63,14 +69,17 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import tpupose_torch.serve, tpupose_torch.cli, tpupose_torch.config_io\n"
         "import tpupose_torch.models.caffe\n"
         "from tpupose_torch.decode import decode_maps, decode_maps_batch, to_people\n"
+        "from tpupose_torch.data import coco_eval, coco_prep, hdf5, pack_tpr, rle, tpr\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print('LOADED', bad)\n"
+        "print('OPTIONAL', sorted(m for m in sys.modules if m in ('h5py', 'cv2')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300,
                          env={**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    assert "OPTIONAL []" in out.stdout, out.stdout
 
 
 def describe(cls):
@@ -209,3 +218,81 @@ def test_caffe_copy_parses_as_the_reference(tmp_path, legacy):
     assert np.array_equal(tcaffe.blob_to_kernel(blob), jcaffe.blob_to_kernel(blob))
     with pytest.raises(ValueError, match="4-D"):
         tcaffe.blob_to_kernel(blob[0])
+
+
+# --- the data path's copies -------------------------------------------------------------
+
+
+class _Normalise(ast.NodeTransformer):
+    """Module and function docstrings dropped, ``tpupose_torch`` read as
+    ``tpupose``: what stays is the code."""
+
+    def _strip(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    visit_Module = visit_FunctionDef = visit_ClassDef = _strip
+
+    def visit_ImportFrom(self, node):
+        if node.module and node.module.split(".")[0] == "tpupose_torch":
+            node.module = "tpupose" + node.module[len("tpupose_torch"):]
+        return node
+
+    def visit_Import(self, node):
+        for alias in node.names:
+            if alias.name.split(".")[0] == "tpupose_torch":
+                alias.name = "tpupose" + alias.name[len("tpupose_torch"):]
+        return node
+
+
+def _code(path, names=None):
+    """The normalised AST of a file, or of its top-level ``names``."""
+    with open(os.path.join(ROOT, path)) as f:
+        tree = _Normalise().visit(ast.parse(f.read()))
+    if names is None:
+        return ast.dump(tree)
+    found = {n.name: ast.dump(n) for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and n.name in names}
+    assert sorted(found) == sorted(names), path
+    return found
+
+
+@pytest.mark.parametrize("ref, port, names", [
+    ("tpupose/data/coco_eval.py", "tpupose_torch/data/coco_eval.py", None),
+    ("tpupose/data/coco_prep.py", "tpupose_torch/data/coco_prep.py", None),
+    ("tpupose/data/hdf5.py", "tpupose_torch/data/hdf5.py", None),
+    ("tpupose/data/tpr.py", "tpupose_torch/data/tpr.py",
+     ["_payload_crc", "_check", "TprWriter", "_PyReader", "_meta_from_sample",
+      "_sample_from_parts", "write_samples", "read_samples", "num_samples"]),
+    ("tpupose/data/pipeline.py", "tpupose_torch/data/pipeline.py",
+     ["batch_samples", "_stack", "prefetch", "dataset_batches", "synthetic_batches"]),
+    ("tools/pack_tpr.py", "tpupose_torch/data/pack_tpr.py", ["iter_input", "main"]),
+])
+def test_data_copies_equal_the_reference(ref, port, names):
+    """Verbatim copies but for docstrings and comments (and, in tpr.py and
+    pipeline.py, the native library's loading and ``shard="auto"``, which
+    differ by design and are held to the reference by tests/test_torch_data.py)."""
+    assert _code(port, names) == _code(ref, names)
+
+
+def test_tpr_batches_copy_differs_from_the_reference_only_in_docstrings():
+    assert _code("tpupose_torch/data/pipeline.py", ["TprBatches"]) == \
+        _code("tpupose/data/pipeline.py", ["TprBatches"])
+
+
+@pytest.mark.parametrize("source", ["rle.c", "feed.cpp"])
+def test_native_sources_are_the_reference_code(source):
+    import re
+
+    def code(path):
+        with open(os.path.join(ROOT, path)) as f:
+            text = re.sub(r"/\*.*?\*/", "", f.read(), flags=re.S)
+        lines = (re.sub(r"//.*", "", line).rstrip() for line in text.splitlines())
+        return [line for line in lines if line]
+
+    got = code(f"tpupose_torch/native/{source}")
+    assert len(got) > 40 and got == code(f"native/{source}")

@@ -24,6 +24,9 @@ from tpupose.config import InferenceConfig, ModelConfig, PoseConfig
 from tpupose.infer import PoseEstimator as JaxEstimator
 from tpupose.models import OpenPose as JaxOpenPose
 from tpupose_torch.infer import PoseEstimator
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = PoseConfig(model=ModelConfig(boxsize=64, num_stages=2, compute_dtype="float32"),

@@ -34,6 +34,9 @@ from tpupose_torch.ops.assoc import assoc
 from tpupose_torch.ops.block1 import block1
 from tpupose_torch.ops.pyramid_peaks import pyramid_peak_scores
 from tpupose_torch.ops.sample import sample_avg
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 
 def _rand(shape, scale, seed):

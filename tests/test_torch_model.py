@@ -16,6 +16,9 @@ import torch
 
 from tpupose.models import OpenPose as JaxOpenPose
 from tpupose_torch.models import OpenPose, weights
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 
 @lru_cache(maxsize=1)

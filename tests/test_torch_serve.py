@@ -47,6 +47,9 @@ from tpupose_torch.serve import (
     MicroBatcher, Overloaded, RequestTimeout, RssWatchdog, _decode_png, _run_until_exit,
     rss_mb, serve, warmup_estimator,
 )
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 
 def png(img: np.ndarray) -> bytes:
@@ -257,6 +260,13 @@ def test_pose_bad_body_400(fake_server):
 def test_unknown_path_404(fake_server):
     assert get(fake_server, "/nope")[0] == 404
     assert post(fake_server, b"x", "/other")[0] == 404
+
+
+def test_unknown_path_404_reads_the_body_first(fake_server):
+    # a server that closed over the unread body would reset the connection
+    # while this client is still sending
+    for size in (1, 8 << 20):
+        assert post(fake_server, b"x" * size, "/other")[:2] == (404, {"error": "unknown path"})
 
 
 def test_oversized_body_rejected_413(fake_server):

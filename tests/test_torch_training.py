@@ -60,6 +60,9 @@ from tpupose_torch.training import checkpoint, create_state, make_eval_step
 from tpupose_torch.training import make_preprocessed_step, make_train_step, stagewise_losses
 from tpupose_torch.training.loop import train
 from tpupose_torch.training.optimizer import multipliers, param_labels, step_decay_schedule
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 TRAIN_KW = dict(batch_size=2, base_lr=1e-4)
 J_SMALL = JPose(model=JModel(boxsize=64, compute_dtype="float32"),

@@ -34,6 +34,9 @@ from tpupose.models import weights as jweights
 from tpupose_torch.infer import PoseEstimator
 from tpupose_torch.models import OpenPose
 from tpupose_torch.models import weights as tweights
+from tpupose_torch.testing import limit_threads
+
+limit_threads()
 
 # the serving tests' small configuration (tests/test_serve.py), with the tier
 # ladders below max_peaks as the CLI's --max-peaks builds them: the

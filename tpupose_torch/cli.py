@@ -5,13 +5,19 @@ holds:
 
   demo-image       single image -> people JSON + overlay
   demo-video       frame loop (video file / camera), optional tracking
+  prepare          COCO keypoint annotations + images -> packed dataset
+                   (``.tpr``, or HDF5 where h5py is installed)
+  train            training from a packed dataset (or 'synthetic')
+  finetune         the same with the VGG base frozen
+  eval             OKS keypoint AP over a packed dataset or a COCO
+                   annotation file
   convert-weights  reference weights (.h5 / .caffemodel / .pth) -> the
                    port's checkpoint (``training/checkpoint.py``, .npz)
   export-weights   the port's checkpoint -> reference-format Keras .h5
 
-Every command runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is given. Reading images and video needs cv2, imported
-where a command reads them.
+Every command that runs a model runs it on the card (``--device cuda``,
+the default) unless ``--device cpu`` is given. Reading images and video
+needs cv2, imported where a command reads them.
 
 Usage: python -m tpupose_torch.cli <command> [options]
 """
@@ -250,6 +256,254 @@ def cmd_demo_video(args) -> int:
     return 0
 
 
+def cmd_prepare(args) -> int:
+    from tpupose_torch.data import coco_prep
+
+    n = coco_prep.pack(args.annotations, args.images, args.output)
+    print(f"packed {n} records -> {args.output}")
+    return 0
+
+
+def _init_params(cfg) -> dict:
+    """The seeded default init (seed 0, as ``loop.train`` makes it) in the
+    flax layout, for the weight loaders to overlay."""
+    import torch
+
+    from tpupose_torch.models import OpenPose, weights as weights_lib
+    from tpupose_torch.models.openpose import DTYPES
+
+    model = OpenPose(num_stages=cfg.model.num_stages, dtype=DTYPES[cfg.model.compute_dtype])
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return weights_lib.to_flax(model.state_dict())
+
+
+def _run_training(args, frozen_vgg: bool) -> int:
+    import dataclasses
+
+    from tpupose_torch.data import pipeline
+    from tpupose_torch.models import weights as weights_lib
+    from tpupose_torch.training import loop
+
+    cfg = _config(args)
+    train_cfg = cfg.train
+    if args.batch_size:
+        train_cfg = dataclasses.replace(train_cfg, batch_size=args.batch_size)
+    if frozen_vgg:
+        train_cfg = train_cfg.frozen_vgg()
+    cfg = dataclasses.replace(cfg, train=train_cfg)
+
+    params = None  # flax layout until handed to the loop
+    if getattr(args, "checkpoint", None):
+        # initial params from one of the port's checkpoints (the promised
+        # precedence over --weights); the workdir's own checkpoints
+        # still win for resume inside loop.train
+        from tpupose_torch.training.checkpoint import restore_params
+
+        params = restore_params(args.checkpoint)
+        if params is None:
+            print(f"error: no checkpoint found in {args.checkpoint}",
+                  file=sys.stderr)
+            return 2
+    elif args.weights:
+        params, loaded = weights_lib.maybe_load_pretrained(_init_params(cfg), args.weights)
+        if not loaded:
+            print(f"warning: weights file {args.weights} not found", file=sys.stderr)
+
+    if getattr(args, "vgg19_npz", None):
+        # the reference's from_vgg init: ImageNet VGG19 convs overlaid on
+        # the (possibly fresh) param tree before training starts
+        if params is not None:
+            # the reference's from_vgg path only applies to a fresh init;
+            # overlaying ImageNet convs on restored weights degrades them
+            print(
+                "warning: --vgg19-npz overlays ImageNet convs ON TOP of the "
+                "restored --checkpoint/--weights VGG base (the reference's "
+                "from_vgg only ever applies to a fresh init); drop the flag "
+                "to keep the trained convs",
+                file=sys.stderr,
+            )
+        else:
+            params = _init_params(cfg)
+        params, ok = weights_lib.load_vgg19_imagenet_npz(args.vgg19_npz, params)
+        if not ok:
+            print(f"warning: VGG19 npz {args.vgg19_npz} had no effect "
+                  "(missing file or no matching arrays)", file=sys.stderr)
+
+    if args.dataset == "synthetic":
+        batches = pipeline.synthetic_batches(cfg, n_batches=args.max_steps or 10)
+    else:
+        # shard="auto": under torch.distributed each process feeds its own
+        # disjoint record slice; single-process runs read everything.
+        # .tpr datasets take the native threaded-inflate path; pre-padded
+        # ones (data/pack_tpr.py --pre-pad) skip host-side prep entirely,
+        # and their position rides every checkpoint.
+        batches = pipeline.dataset_batches(args.dataset, cfg, shard="auto")
+
+    val_batches = None
+    if getattr(args, "val_dataset", None):
+        # the reference's fit_generator validation_data: a fresh pass
+        # over the held-out set each time the loop validates (epochs=1,
+        # unshuffled; shard="auto" keeps multi-process batch counts equal)
+        if args.val_dataset == "synthetic":
+            def val_batches():
+                return pipeline.synthetic_batches(cfg, seed=997, n_batches=2)
+        else:
+            def val_batches():
+                return pipeline.dataset_batches(
+                    args.val_dataset, cfg, epochs=1, shuffle_seed=None,
+                    shard="auto",
+                )
+
+    try:
+        result = loop.train(
+            cfg, batches,
+            params=None if params is None else weights_lib.from_flax(params),
+            workdir=args.workdir,
+            max_steps=args.max_steps,
+            val_batches=val_batches,
+            val_every=getattr(args, "val_every", None),
+            device=args.device,
+        )
+    finally:
+        if hasattr(batches, "close"):
+            batches.close()
+    print(
+        json.dumps(
+            {
+                "steps": result["steps"],
+                "steps_per_sec": round(result["steps_per_sec"], 3),
+                "last_losses": {k: round(v, 4) for k, v in result["last_losses"].items()},
+            }
+        )
+    )
+    return 0
+
+
+def cmd_train(args) -> int:
+    return _run_training(args, frozen_vgg=False)
+
+
+def cmd_finetune(args) -> int:
+    return _run_training(args, frozen_vgg=True)
+
+
+def _ignore_region_gt(regions):
+    """[x, y, w, h, area] rows -> coco_eval match-to-ignore GT dicts.
+
+    Detections falling on these regions match-to-ignore instead of
+    counting as false positives (data/coco_eval.py crowd semantics,
+    SURVEY §4 eval contract)."""
+    import numpy as np
+
+    out = []
+    for reg in regions:
+        x, y, w, h, area = (float(v) for v in reg)
+        out.append({
+            "keypoints": np.full((18, 3), 2.0),  # all absent
+            "area": area if area > 0 else w * h,
+            "iscrowd": 1,
+            "num_keypoints": 0,
+            "bbox": [x, y, w, h],
+        })
+    return out
+
+
+def _eval_inputs(args):
+    """Yields (image, gt_list, image_id) from either eval source:
+    a packed dataset (--dataset; per-main-person records) or a COCO
+    annotation file + image dir (--annotations/--images; one record per
+    image, the reference-user workflow — no packing step)."""
+    if getattr(args, "annotations", None):
+        from tpupose_torch.data.coco_prep import iter_eval_images
+
+        for rec in iter_eval_images(args.annotations, args.images):
+            gt = list(rec["gt"]) + _ignore_region_gt(rec["ignore_regions"])
+            yield rec["image"], gt, rec["image_id"]
+        return
+    import tpupose_torch.data as data_pkg
+
+    for rec in data_pkg.read_samples(args.dataset):
+        # real GT areas ride the records (bbox-estimated by the reader
+        # for older files without them) — OKS is exponential in area
+        gt = [
+            {"keypoints": j, "area": float(a)}
+            for j, a in zip(rec["joints"], rec["areas"])
+            if (j[:, 2] < 2).any()
+        ]
+        gt += _ignore_region_gt(rec.get("ignore_regions", ()))
+        yield rec["image"], gt, rec.get("image_id")
+
+
+def cmd_eval(args) -> int:
+    from tpupose_torch.data import coco_eval
+
+    if getattr(args, "annotations", None) and getattr(args, "dataset", None):
+        print("error: --dataset and --annotations are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    if not getattr(args, "annotations", None) and not getattr(
+        args, "dataset", None
+    ):
+        print("error: one of --dataset or --annotations is required",
+              file=sys.stderr)
+        return 2
+    if getattr(args, "annotations", None) and not getattr(args, "images",
+                                                          None):
+        print("error: --annotations requires --images <dir>",
+              file=sys.stderr)
+        return 2
+    est = _estimator(args)
+    runner = None
+    if getattr(args, "buckets", None):
+        from tpupose_torch.buckets import BucketedRunner, resolve_buckets
+
+        runner = BucketedRunner(
+            est, resolve_buckets(args.buckets), batch_size=args.eval_batch
+        )
+    preds, gts, image_ids = [], [], []
+    for i, (image, gt, image_id) in enumerate(_eval_inputs(args)):
+        if args.max_images and i >= args.max_images:
+            break
+        if runner is not None:
+            runner.add(image)
+        else:
+            preds.append(est.process(image)["people"])
+        gts.append(gt)
+        image_ids.append(image_id)
+    if runner is not None:
+        preds = runner.finish()
+    if getattr(args, "coco_results", None):
+        # pycocotools-format keypoint results: detections from this
+        # framework drop into any COCO-results tooling / COCOeval run.
+        # Datasets written by prepare carry the original COCO image id per
+        # record, so the export aligns with the real annotation file;
+        # records are per main person, so repeats of the same image
+        # (identical detections) are deduplicated. Older files without ids
+        # fall back to the record index — only self-consistent GT applies.
+        from tpupose_torch.data.coco_prep import people_to_coco_results
+
+        records, seen = [], set()
+        have_ids = all(v is not None for v in image_ids)
+        if not have_ids:
+            print("warning: dataset records carry no COCO image_id; "
+                  "exporting sequential ids (usable only against GT "
+                  "indexed the same way, not the original COCO "
+                  "annotation file)", file=sys.stderr)
+        for i, people in enumerate(preds):
+            img_id = image_ids[i] if have_ids else i
+            if img_id in seen:
+                continue
+            seen.add(img_id)
+            records.extend(people_to_coco_results(people, image_id=img_id))
+        with open(args.coco_results, "w") as f:
+            json.dump(records, f)
+        print(f"COCO keypoint results written to {args.coco_results}",
+              file=sys.stderr)
+    res = coco_eval.evaluate(preds, gts)
+    print(json.dumps(res))
+    return 0
+
+
 def cmd_convert_weights(args) -> int:
     """Reference weights (.h5 / .caffemodel / .pth) -> the port's checkpoint."""
     import torch
@@ -311,6 +565,67 @@ def main(argv=None) -> int:
                    help="keypoint EMA factor in [0,1) with --track")
     _add_common_model_args(p)
     p.set_defaults(fn=cmd_demo_video)
+
+    p = sub.add_parser("prepare", help="COCO annotations -> packed .tpr / HDF5")
+    p.add_argument("--annotations", required=True)
+    p.add_argument("--images", required=True)
+    p.add_argument("--output", required=True,
+                   help=".tpr (the native record container) or .h5 (needs h5py)")
+    p.set_defaults(fn=cmd_prepare)
+
+    for name, fn in (("train", cmd_train), ("finetune", cmd_finetune)):
+        p = sub.add_parser(name, help=f"{name} (finetune = frozen VGG)")
+        p.add_argument("--dataset", required=True,
+                       help="packed .tpr / HDF5 path, or 'synthetic'")
+        p.add_argument("--workdir", default=f"runs/{name}")
+        p.add_argument("--max-steps", type=int, default=None)
+        p.add_argument("--batch-size", type=int, default=None)
+        p.add_argument("--val-dataset", default=None, metavar="PATH",
+                       help="held-out packed dataset (or 'synthetic'): "
+                            "per-head eval losses every --val-every steps "
+                            "to workdir/validation.csv + TensorBoard (the "
+                            "reference's fit_generator validation_data)")
+        p.add_argument("--val-every", type=int, default=None,
+                       help="steps between validation passes (default: "
+                            "the checkpoint interval)")
+        p.add_argument("--vgg19-npz", default=None, metavar="NPZ",
+                       help="overlay VGG19 ImageNet conv weights from an "
+                            ".npz onto the init (the reference's from_vgg "
+                            "fine-tune initialisation); applied AFTER any "
+                            "--checkpoint/--weights restore, overwriting "
+                            "the restored VGG convs — meant for fresh inits")
+        _add_common_model_args(p)
+        p.set_defaults(fn=fn)
+
+    p = sub.add_parser(
+        "eval",
+        help="OKS keypoint AP over a packed dataset or a COCO "
+             "annotation file",
+    )
+    p.add_argument("--dataset", default=None,
+                   help="packed .tpr/.h5 dataset (per-main-person records)")
+    p.add_argument("--annotations", default=None, metavar="JSON",
+                   help="evaluate straight from a COCO keypoint annotation "
+                        "file (one pass per image, crowd/ignore GT "
+                        "included) — no packing step; requires --images")
+    p.add_argument("--images", default=None, metavar="DIR",
+                   help="image directory for --annotations")
+    p.add_argument("--max-images", type=int, default=0)
+    p.add_argument(
+        "--buckets", default=None,
+        help="'default' or 'HxW,...' — batch mixed-size images through "
+             "the canvas ladder instead of one image at a time",
+    )
+    p.add_argument("--eval-batch", type=int, default=8,
+                   help="batch size per bucket with --buckets")
+    p.add_argument("--coco-results", default=None, metavar="JSON",
+                   help="also write detections as pycocotools keypoint "
+                        "results (17-kp COCO order; loadRes-compatible "
+                        "against the original annotation file when the "
+                        "dataset carries COCO image ids — files written by "
+                        "prepare do; older files export sequential ids)")
+    _add_common_model_args(p)
+    p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("convert-weights",
                        help="reference weights -> the port's checkpoint")

@@ -470,6 +470,22 @@ def make_handler(estimator, batcher: MicroBatcher | None = None,
             self.end_headers()
             self.wfile.write(body)
 
+        def _discard_body(self) -> None:
+            """Read and drop a body the reply does not need. A socket closed over
+            unread bytes is reset, and the reset can cut off a reply the client
+            has not read yet."""
+            try:
+                n = int(self.headers.get("Content-Length", "0"))
+            except ValueError:
+                return
+            if n > max_body_bytes:
+                return
+            while n > 0:
+                chunk = self.rfile.read(min(n, 1 << 16))
+                if not chunk:
+                    return
+                n -= len(chunk)
+
         def _shed(self, why: str) -> None:
             self._reply(503, {"error": f"overloaded: {why}"},
                         headers={"Retry-After": retry_after_s})
@@ -487,6 +503,7 @@ def make_handler(estimator, batcher: MicroBatcher | None = None,
 
         def do_POST(self):
             if not self.path.startswith("/pose"):
+                self._discard_body()
                 self._reply(404, {"error": "unknown path"})
                 return
             t0 = time.perf_counter()

@@ -7,10 +7,14 @@ bilinear resize: decoding them must give the two people.
 ``crowded_scene`` does the same for a crowd of 30 or more people in a
 720x1280 frame: the tables the association meets on a crowded frame.
 ``png_bytes`` encodes an image as a request body with ``zlib`` alone.
+``coco_keypoint_set`` writes a COCO-format keypoint set (annotations and
+PNG images) from a seed: the input of ``prepare`` and ``eval``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import struct
 import zlib
 
@@ -31,6 +35,16 @@ _BODY = {
     "Reye": (-0.08, -1.02), "Leye": (0.08, -1.02),
     "Rear": (-0.17, -0.98), "Lear": (0.17, -0.98),
 }
+
+
+def limit_threads() -> None:
+    """Give torch's intra-op pool this process's share of the host's cores
+    when it is one of several pytest-xdist workers (each worker would
+    otherwise start a thread per core, and the workers together many times
+    more threads than cores). The port's test files call it at import."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
 
 
 def person(cx: float, cy: float, size: float = 120.0) -> np.ndarray:
@@ -130,3 +144,97 @@ def png_bytes(image: np.ndarray, filters=(0, 1, 2), level: int = 1) -> bytes:
     return (b"\x89PNG\r\n\x1a\n"
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(bytes(out), level)) + chunk(b"IEND", b""))
+
+
+# COCO's 17 keypoints in annotation order, as the port's part names
+COCO_PARTS = ("nose", "Leye", "Reye", "Lear", "Rear", "Lsho", "Rsho", "Lelb", "Relb",
+              "Lwri", "Rwri", "Lhip", "Rhip", "Lkne", "Rkne", "Lank", "Rank")
+
+
+def coco_keypoint_set(directory: str, shapes, seed: int = 0) -> tuple[str, str]:
+    """A COCO-format keypoint set under ``directory``: one random PNG per
+    (h, w) of ``shapes`` in ``images/``, and ``annotations.json`` with 1-4
+    upright persons on each image but the last, which has no annotation.
+    Each person has the 17 COCO keypoints (about one in ten unlabelled and
+    one in six occluded), ``num_keypoints``, a box polygon as its
+    segmentation, and its box's area. The first image also holds a person
+    with 3 keypoints (under-annotated: masked out, no training record), the
+    second a crowd region given as a polygon, the third one given as a COCO
+    RLE string. Returns (annotation path, image directory)."""
+    import cv2
+
+    from tpupose_torch.data import rle
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(directory, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+
+    def add(image_id, kps, box, num, iscrowd=0, segmentation=None):
+        x, y, bw, bh = box
+        anns.append({
+            "id": len(anns) + 1, "image_id": image_id, "category_id": 1, "iscrowd": iscrowd,
+            "keypoints": kps, "num_keypoints": num, "bbox": [x, y, bw, bh],
+            "area": round(bw * bh * 0.6, 2),
+            "segmentation": segmentation or [[x, y, x + bw, y, x + bw, y + bh, x, y + bh]],
+        })
+
+    for i, (h, w) in enumerate(shapes):
+        image_id = 1000 + i
+        name = f"{i:03d}.png"
+        cv2.imwrite(os.path.join(img_dir, name), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        images.append({"id": image_id, "file_name": name, "height": h, "width": w})
+        if i == len(shapes) - 1:
+            continue
+        for k in range(int(rng.integers(1, 5)) + (i == 0)):
+            size = rng.uniform(0.4, 0.7) * min(h, w)
+            cx = rng.uniform(0.5 * size, w - 0.5 * size)
+            cy = rng.uniform(0.55 * size, h - 0.55 * size)
+            joints = person(cx, cy, size)
+            vis = rng.choice([2, 1, 0], p=[0.75, 0.15, 0.1], size=len(COCO_PARTS))
+            if k == 0 and i == 0:
+                vis[3:] = 0                           # the under-annotated person
+            kps: list = []
+            for v, part in zip(vis, COCO_PARTS):
+                x, y = joints[topology.PART_INDEX[part], :2]
+                kps += [round(float(x), 2), round(float(y), 2), int(v)] if v else [0, 0, 0]
+            xs, ys = joints[:, 0], joints[:, 1]
+            x0, y0 = max(float(xs.min()) - 4, 0.0), max(float(ys.min()) - 4, 0.0)
+            box = [round(x0, 2), round(y0, 2), round(min(float(xs.max()) + 4, w - 1) - x0, 2),
+                   round(min(float(ys.max()) + 4, h - 1) - y0, 2)]
+            add(image_id, kps, box, int((vis > 0).sum()))
+        if i in (1, 2):                               # a crowd region
+            bw, bh = w // 4, h // 4
+            x0, y0 = w - bw - 1, h - bh - 1
+            seg = [[x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0, y0 + bh]]
+            if i == 2:
+                mask = np.zeros((h, w), np.uint8)
+                mask[y0:y0 + bh, x0:x0 + bw] = 1
+                seg = {"size": [h, w],
+                       "counts": rle.to_string_np(rle.encode_np(mask)).decode("ascii")}
+            add(image_id, [0] * 51, [x0, y0, bw, bh], 0, iscrowd=1, segmentation=seg)
+    ann_path = os.path.join(directory, "annotations.json")
+    with open(ann_path, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return ann_path, img_dir
+
+
+def people_from_gt(gt: list[dict]) -> list[dict]:
+    """One image's evaluation GT (``coco_eval`` dicts) as detections: each
+    person with labelled keypoints becomes a people-JSON entry holding them
+    (score 1); ignore regions give none. Scored against the same GT, the
+    detections of a whole set give AP 1.0."""
+    people = []
+    for g in gt:
+        kp = np.asarray(g["keypoints"], np.float64)
+        if g.get("iscrowd") or g.get("num_keypoints", 1) == 0 or not (kp[:, 2] < 2).any():
+            continue
+        people.append({
+            "keypoints": {topology.PARTS[i]: {"x": float(kp[i, 0]), "y": float(kp[i, 1]),
+                                              "score": 1.0}
+                          for i in range(len(kp)) if kp[i, 2] < 2},
+            "score": 1.0,
+            "num_parts": int((kp[:, 2] < 2).sum()),
+        })
+    return people

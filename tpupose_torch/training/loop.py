@@ -1,9 +1,13 @@
-"""The training loop: steps, LR schedule, checkpoints, CSV logging.
+"""The training loop: steps, LR schedule, checkpoints, CSV/TB logging.
 
 Counterpart of ``tpupose/training/loop.py`` on one device: restore-latest,
-iterate generator batches, log per-head losses, checkpoint periodically.
+iterate generator batches, log per-head losses, checkpoint periodically
+(``checkpoint.AsyncSaver``: the step loop never waits on the disk).
 Works identically for from-scratch training and frozen-VGG domain
-adaptation — the optimizer encodes the difference.
+adaptation — the optimizer encodes the difference. A checkpointable feed
+(``data/pipeline.is_checkpointable``, e.g. ``TprBatches``) has its
+position saved in every checkpoint and rewound on restore, so a resumed
+run takes the batches the uninterrupted one would have taken.
 
 Each step's augmentation draws come from a generator seeded from
 (``seed``, the step's index), so a run resumed from a checkpoint repeats
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from tpupose_torch.config import PoseConfig
+from tpupose_torch.data.pipeline import is_checkpointable
 from tpupose_torch.models import OpenPose
 from tpupose_torch.models.openpose import DTYPES
 from tpupose_torch.training import checkpoint as ckpt_lib
@@ -48,6 +53,30 @@ class CSVLogger:
     def close(self) -> None:
         if self._file:
             self._file.close()
+
+
+class TBLogger:
+    """TensorBoard scalars via ``torch.utils.tensorboard.SummaryWriter``
+    (reference artifact parity with its TensorBoard callback); no-op
+    where it cannot be imported (it needs the ``tensorboard`` package)."""
+
+    def __init__(self, logdir: str):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._writer = SummaryWriter(logdir)
+        except ImportError:
+            self._writer = None
+
+    def log(self, step: int, losses: dict[str, float]) -> None:
+        if self._writer is not None:
+            for k, v in losses.items():
+                self._writer.add_scalar(f"loss/{k}", v, step)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.flush()
+            self._writer.close()
 
 
 def step_generator(seed: int, step_idx: int) -> torch.Generator:
@@ -86,12 +115,17 @@ def train(
     tree = state.tree()
 
     ckpt_dir = os.path.join(workdir, cfg.train.checkpoint_dir)
-    restored = ckpt_lib.restore(ckpt_dir, tree)
+    # a checkpointable feed has its position saved with the model state and
+    # rewound here: exact mid-epoch resume
+    ckpt_feed = batches if is_checkpointable(batches) else None
+    restored = ckpt_lib.restore(ckpt_dir, tree, data_iter=ckpt_feed)
     if restored is not None:
         tree = restored
 
     step_fn = make_train_step(cfg, model, tx, loss_denom=cfg.train.batch_size)
     logger = CSVLogger(os.path.join(workdir, "training.csv"))
+    tb = TBLogger(os.path.join(workdir, "tb"))
+    saver = ckpt_lib.AsyncSaver(ckpt_dir)
 
     val_logger = None
     eval_fns: dict[int, Any] = {}
@@ -114,17 +148,20 @@ def train(
                 totals[k] = totals.get(k, 0.0) + v * n_real
             n_total += n_real
         if n_total:
-            val_logger.log(step_idx, {k: v / n_total for k, v in totals.items()})
+            means = {k: v / n_total for k, v in totals.items()}
+            val_logger.log(step_idx, means)
+            tb.log(step_idx, {f"val_{k}": v for k, v in means.items()})
 
     limit = max_steps if max_steps is not None else cfg.train.max_steps
     # The step counter lives host-side; losses are read from the device
     # only when they are logged, so dispatch runs ahead of the device.
     start = int(tree["step"])
     step_idx = start
-    last_saved = None
     t0 = time.time()
     losses = None  # device handle of the most recent step's losses
 
+    # check the limit BEFORE pulling a batch: a checkpointable feed's
+    # saved position must not advance past a batch no step consumed
     feed = iter(batches)
     while step_idx < limit:
         try:
@@ -144,21 +181,24 @@ def train(
         if step_idx % cfg.train.log_every == 0 or step_idx == start + 1:
             logged = _host(losses)
             logger.log(step_idx, logged)
+            tb.log(step_idx, logged)
             if on_step is not None:
                 on_step(step_idx, logged)
         if step_idx % cfg.train.checkpoint_every == 0:
-            last_saved = ckpt_lib.save(ckpt_dir, tree)
+            saver.save(tree, step=step_idx, data_iter=ckpt_feed)
         if val_batches is not None and step_idx % val_every == 0:
             run_validation(step_idx)
 
     # the FINAL step's losses, whatever the logging cadence was
     last_losses = _host(losses) if losses is not None else {}
-    if last_saved != tree["step"]:
-        ckpt_lib.save(ckpt_dir, tree)
+    if saver.last_saved != tree["step"]:
+        saver.save(tree, step=tree["step"], data_iter=ckpt_feed)
+    saver.close()  # block until every pending write is durable
     if val_batches is not None:
         run_validation(tree["step"])
         val_logger.close()
     logger.close()
+    tb.close()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     elapsed = time.time() - t0
