@@ -148,8 +148,38 @@ exits non-zero):
      steps leaves every vgg tensor bit-identical; TprBatches records/s at
      threads=8 beside the trainer's samples/s fed from it, and its steps/s
      beside phase e's on synthetic_batches.
+  j. the multi-device slice (after phase i, on its data), on the one card:
+     remat: one full-width bf16 step at batch 10 from one state and one set
+     of draws with remat off and on, the 13 losses bit-equal and the updated
+     parameters within 1e-5, peak memory and step ms of both; train(use_mesh
+     =True) over one NCCL rank (init_multihost on a local TCP address, world
+     size 1), 3 steps equal to use_mesh=False bit for bit, gt launched once
+     a step; two spawned gloo ranks sharing the card, each keeping 5 of the
+     10 rows, 3 steps: losses within 1e-4 relative of the single process,
+     parameters within 1e-5, gt launched once a step in each rank;
+     DataParallelEstimator over two replicas on cuda:0, a 4-scale batch of 8
+     at 368x368: each chunk's people equal to process_batch of its images
+     with the batch-wide overflow switch (integers equal, floats within
+     1e-4), block1 x8 and pyramid_peaks, sample, assoc x2 launched, images/s
+     beside the single estimator's; on crowded 720x1280 frames at max_peaks
+     24, a chunk that overflows switches the other chunk's tables to score
+     order (run_chunks over the scenes' maps); sharded_process and
+     sharded_process_batch over a 1- and a 2-entry mesh: peaks once per
+     decode, pyramid_peaks never, block1 once per canvas chunk, the f32 maps
+     within relative L2 1e-4 across the meshes; SpatialPoseEstimator on a
+     1104x1104 image over 1 and 2 tiles: f32 final-stage maps within
+     relative L2 1e-4, equal people counts, block1 of each scale over 2
+     tiles bit-equal to the whole image's call and within phase b's rule of
+     the plain version, the bf16 conv after it over tiles against the whole
+     image, bf16 people (also with block1 off) and latency, block1 once per
+     tile and scale; train() from the checkpointable feed
+     (source_batches over 30 of phase i's records in memory, 2 spawned
+     workers) 10 steps, and 5 then 5 resumed, bit-equal; eval --dp auto and
+     serve --dp auto run unchanged on the one device (serve's one 4-scale
+     request: block1 x4, pyramid_peaks, sample and assoc x1), --dp 2 exits 2
+     with the reference's message. Its seconds are printed.
 
-The phase e, f, h and i lines are printed once more at the end; the last three
+The phase e, f, h, i and j lines are printed once more at the end; the last three
 lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero before
@@ -902,6 +932,519 @@ def _data_train_phase(torch, np, card: str, data_dir: str, files: dict,
               f"{synthetic_steps_per_s:.3f} steps/s on synthetic_batches (phase e); the feed "
               f"{'keeps up with' if feed_rate >= n_b / step_s else 'falls behind'} the step "
               f"({card})")
+    return counts
+
+
+def _dp_train_rank(rank: int, world: int, address: str, cfg, batch: dict, steps: int) -> dict:
+    """One rank of phase j's data-parallel trainer: its own process, a gloo
+    group of ``world`` ranks on the one card, ``train(use_mesh=True)`` for
+    ``steps`` steps on the global ``batch``. Returns the logged losses, the
+    launches, and the parameters (rank 0) or their per-tensor sums."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpupose_torch import ops
+    from tpupose_torch.parallel.distributed import init_multihost
+    from tpupose_torch.training.loop import train
+
+    torch.backends.cudnn.deterministic = True
+    if not init_multihost(address, world, rank, backend="gloo"):
+        raise AssertionError("init_multihost returned False with an address")
+    ops.reset_launch_counts()
+    hist: list = []
+    with tempfile.TemporaryDirectory() as workdir:
+        res = train(cfg, [batch] * steps, workdir=workdir, max_steps=steps, seed=0,
+                    device="cuda", on_step=lambda i, losses: hist.append(losses))
+    torch.cuda.synchronize()
+    params = {k: v.detach().cpu() for k, v in res["state"]["params"].items()}
+    out = {"hist": hist, "counts": ops.launch_counts(), "rank": dist.get_rank()}
+    out["params"] = params if rank == 0 else {k: float(v.double().abs().sum())
+                                              for k, v in params.items()}
+    dist.destroy_process_group()
+    return out
+
+
+class _MapsReplica:
+    """A stand-in for an estimator replica in ``parallel.inference.run_chunks``:
+    its chunk of "images" is a list of frame indices, whose network outputs
+    are given maps (the crowded scenes of phase e); the decode is the
+    estimator's own halves, ``peak_scores_batch`` and ``decode_scores_batch``."""
+
+    def __init__(self, cfg, heats, pafs, geoms, hw, device):
+        self.cfg, self.device = cfg, device
+        self._maps = (heats, pafs, geoms, hw)
+
+    def _scores(self, index, scales, valid_hw):
+        from tpupose_torch.decode.api import peak_scores_batch
+        from tpupose_torch.decode.scalespace import ScaleSpace
+
+        heats, pafs, geoms, hw = self._maps
+        idx = [int(i) for i in index.reshape(-1)]
+        pick = lambda maps: [m[idx].to(self.device) for m in maps]     # noqa: E731
+        paf_in = ScaleSpace(pick(pafs), geoms, hw)
+        flats, w = peak_scores_batch(ScaleSpace(pick(heats), geoms, hw), self.cfg.inference)
+        return flats, w, paf_in
+
+    def _tables(self, scored, overflow=None):
+        from tpupose_torch.decode.api import decode_scores_batch
+
+        flats, w, paf_in = scored
+        return decode_scores_batch(flats, w, paf_in, self.cfg.inference, overflow)
+
+
+def _scale_heads(torch, est, image) -> None:
+    """The random network emits no peak: scale the last stage's two output
+    convolutions until its largest heat (parts) and PAF values on ``image``
+    are 1, as phase d does."""
+    heat, paf = est.maps(image)
+    with torch.no_grad():
+        last = est.cfg.model.num_stages
+        for branch, peak in ((f"stage{last}_L2", heat[..., :18].abs().max().item()),
+                             (f"stage{last}_L1", paf.abs().max().item())):
+            head = getattr(est.model, branch).out
+            head.weight.mul_(1.0 / peak)
+            head.bias.mul_(1.0 / peak)
+
+
+def _same_people_strict(got: list, want: list, what: str) -> None:
+    """Integers equal, floats within 1e-4."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} people, want {len(want)}")
+    for a, b in zip(got, want):
+        if a["num_parts"] != b["num_parts"] or sorted(a["keypoints"]) != sorted(b["keypoints"]) \
+                or abs(a["score"] - b["score"]) > 1e-4:
+            raise AssertionError(f"{what}: a person differs")
+        for name, kp in a["keypoints"].items():
+            o = b["keypoints"][name]
+            if (kp["x"], kp["y"]) != (o["x"], o["y"]) or abs(kp["score"] - o["score"]) > 1e-4:
+                raise AssertionError(f"{what}: keypoint {name} differs")
+
+
+def _multidevice_phase(torch, np, card: str, data_dir: str) -> dict:
+    """Phase j: the multi-device slice on the one card (remat, data-parallel
+    training over one NCCL rank and two gloo ranks, the data-parallel
+    estimator over two replicas, the scale-sharded pyramid, the spatially
+    tiled estimator, the checkpointable feed with spawned workers, and
+    ``eval --dp`` / ``serve --dp``). Returns the launches of its paths."""
+    import contextlib
+    import dataclasses
+    import io
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch.distributed as dist
+
+    from tpupose_torch import cli as tcli
+    from tpupose_torch import ops, serve as tserve
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.data import tpr
+    from tpupose_torch.data.grain_pipeline import source_batches
+    from tpupose_torch.data.pipeline import synthetic_batches
+    from tpupose_torch.decode.api import decode_scores_batch
+    from tpupose_torch.gt import augment as gt_augment
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.models import OpenPose
+    from tpupose_torch.ops import block1 as block1_mod, image
+    from tpupose_torch.parallel import inference as dp_inf
+    from tpupose_torch.parallel import pyramid, spatial
+    from tpupose_torch.parallel.distributed import init_multihost
+    from tpupose_torch.parallel.sharding import Mesh, replicate_module
+    from tpupose_torch.testing import crowded_scene, free_port, png_bytes, spawn_ranks
+    from tpupose_torch.training import create_state, make_train_step
+    from tpupose_torch.training.checkpoint import restore_params
+    from tpupose_torch.training.loop import train
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counts: dict[str, int] = {k.name: 0 for k in ops.KERNELS}
+
+    def count(into: dict) -> dict:
+        got = ops.launch_counts()
+        for k, v in got.items():
+            into[k] = into.get(k, 0) + v
+        return got
+
+    cfg = dataclasses.replace(DEFAULT, train=dataclasses.replace(
+        DEFAULT.train, clip_norm=5.0, log_every=1, checkpoint_every=100))
+    n_b = cfg.train.batch_size
+    batch = next(synthetic_batches(cfg, seed=3))
+    torch.backends.cudnn.deterministic = True
+
+    # 1. remat: one state, one set of draws, the step with remat off and on
+    draws = gt_augment.batch_params(torch.Generator().manual_seed(3), cfg.augment, n_b)
+    init = OpenPose(num_stages=cfg.model.num_stages, dtype=torch.bfloat16)
+    init.reset_parameters(torch.Generator().manual_seed(0))
+    remat = {}
+    for on in (False, True):
+        model = OpenPose(num_stages=cfg.model.num_stages, dtype=torch.bfloat16, remat=on)
+        state, tx = create_state(cfg, init.state_dict(), "cuda")
+        step_fn = make_train_step(cfg, model, tx, loss_denom=n_b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tree, losses = step_fn(state.tree(), draws, batch)
+        torch.cuda.synchronize()
+        launched = count(counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        spare, spare_tx = create_state(cfg, init.state_dict(), "cuda")
+        spare_step = make_train_step(cfg, model, spare_tx, loss_denom=n_b)
+        spare_tree = spare.tree()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            spare_tree, _ = spare_step(spare_tree, draws, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        remat[on] = ({k: v.clone() for k, v in losses.items()},
+                     {k: v.clone() for k, v in tree["params"].items()}, peak_gb, step_ms, launched)
+        del state, tree, spare, spare_tree, model, step_fn, spare_step
+        torch.cuda.empty_cache()
+    (l0, p0, g0, ms0, c0), (l1, p1, g1, ms1, c1) = remat[False], remat[True]
+    if not all(torch.equal(l0[k], l1[k]) and torch.isfinite(l0[k]) for k in l0):
+        raise AssertionError("remat: the losses differ from remat off")
+    dpar = max((p1[k] - v).abs().max().item() for k, v in p0.items())
+    if not dpar <= 1e-5 or c1["gt"] != 1:
+        raise AssertionError(f"remat: parameters within {dpar}, launches {c1}")
+    _say("j", f"remat: one full-width bf16 step at batch {n_b} from one state and one set of "
+              f"draws: 13 losses bit-equal with remat off and on, updated parameters within "
+              f"{dpar:.2e} (<= 1e-5); peak memory {g0:.2f} -> {g1:.2f} GiB, step {ms0:.2f} -> "
+              f"{ms1:.2f} ms (host clock, 5 steps); gt launched once: pass ({card})")
+    del remat, p0, p1, init
+
+    # 2. data-parallel training over one NCCL rank: train(use_mesh=True) equals
+    # the single-device loop bit for bit
+    runs = {}
+    for use_mesh in (False, True):
+        if use_mesh:
+            if not init_multihost(f"127.0.0.1:{free_port()}", 1, 0):
+                raise AssertionError("init_multihost returned False with an address")
+            backend = dist.get_backend()
+        ops.reset_launch_counts()
+        hist: list = []
+        with tempfile.TemporaryDirectory() as workdir:
+            res = train(cfg, [batch] * 3, workdir=workdir, max_steps=3, seed=0, device="cuda",
+                        use_mesh=use_mesh, on_step=lambda i, losses: hist.append(losses))
+        torch.cuda.synchronize()
+        launched = count(counts) if use_mesh else ops.launch_counts()
+        runs[use_mesh] = (hist, {k: v.detach().clone() for k, v in res["state"]["params"].items()},
+                          launched)
+        del res
+    dist.destroy_process_group()
+    (h0, q0, _), (h1, q1, c1) = runs[False], runs[True]
+    if h0 != h1 or not all(torch.equal(q0[k], q1[k]) for k in q0):
+        raise AssertionError("train(use_mesh=True) over one rank differs from use_mesh=False")
+    if c1["gt"] != 3 or any(v for k, v in c1.items() if k != "gt"):
+        raise AssertionError(f"DP training over one rank: launches {c1}")
+    _say("j", f"train(use_mesh=True) over one {backend} rank, 3 steps at batch {n_b}: losses and "
+              f"parameters bit-equal to use_mesh=False (total {h1[-1]['total']:.6f} at step 3); "
+              f"launches {c1}: pass")
+    del runs, q1
+
+    # 3. two gloo ranks sharing the card, each keeping 5 of the 10 rows
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_dp_train_rank, 2, cfg, batch, 3, timeout=400.0)
+    dp_s = time.perf_counter() - t0
+    rel = max(abs(r["hist"][i][k] / h0[i][k] - 1.0) for r in ranks for i in range(3)
+              for k in h0[i])
+    dq = max((ranks[0]["params"][k].to(dev) - v).abs().max().item() for k, v in q0.items())
+    same_ranks = all(abs(ranks[1]["params"][k] - float(ranks[0]["params"][k].double().abs().sum()))
+                     == 0.0 for k in q0)
+    for r in ranks:
+        if r["counts"]["gt"] != 3 or any(v for k, v in r["counts"].items() if k != "gt"):
+            raise AssertionError(f"rank {r['rank']}: launches {r['counts']}")
+        for k, v in r["counts"].items():
+            counts[k] += v
+    if not (rel <= 1e-4 and dq <= 1e-5 and same_ranks):
+        raise AssertionError(f"2 gloo ranks: losses within {rel} relative, parameters within "
+                             f"{dq}, ranks equal {same_ranks}")
+    _say("j", f"train(use_mesh=True) over 2 gloo ranks on the one card (spawned, 5 rows each), "
+              f"3 steps: losses within {rel:.2e} relative of the single process (<= 1e-4), "
+              f"parameters within {dq:.2e} (<= 1e-5), both ranks' parameters equal; gt launched "
+              f"3 times in each rank; {dp_s:.1f} s with the processes' start: pass")
+    del ranks, q0
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    # 4. the data-parallel estimator over two replicas on cuda:0
+    rng = np.random.default_rng(9)
+    est = PoseEstimator(DEFAULT, seed=0, device="cuda")
+    imgs8 = rng.integers(0, 256, (8, 368, 368, 3)).astype(np.uint8)
+    _scale_heads(torch, est, imgs8[0])
+    two = Mesh([dev, dev], ("data",))
+    dp = dp_inf.DataParallelEstimator(est, two)
+    dp.process_batch(imgs8)                                   # warm
+    ops.reset_launch_counts()
+    got = dp.process_batch(imgs8)
+    torch.cuda.synchronize()
+    c4 = count(counts)
+    want_counts = {"block1": 8, "pyramid_peaks": 2, "sample": 2, "assoc": 2, "gt": 0, "peaks": 0}
+    if c4 != want_counts:
+        raise AssertionError(f"DataParallelEstimator launches {c4}, want {want_counts}")
+    scored = [est._scores(imgs8[i:i + 4], None, None) for i in (0, 4)]
+    k = est.cfg.inference.max_peaks
+    overflow = any(bool((torch.isfinite(f).sum(-1) > k).any()) for f, _, _ in scored)
+    for i, s in enumerate(scored):
+        _same_people_strict(sum(got[4 * i:4 * i + 4], []),
+                            sum(est._finish(4, est._tables(s, overflow)), []),
+                            f"DP chunk {i}")
+    n_people = sum(map(len, got))
+    times = {"dp": [], "single": []}
+    for which in ("single", "dp", "dp", "single"):
+        runner = dp if which == "dp" else est
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            runner.process_batch(imgs8)
+        torch.cuda.synchronize()
+        times[which].append(24 / (time.perf_counter() - t0))
+    _say("j", f"DataParallelEstimator over 2 replicas on cuda:0, a 4-scale batch of 8 at 368x368: "
+              f"{n_people} people, each chunk equal to process_batch of its 4 images with the "
+              f"batch-wide overflow switch ({overflow}); launches {c4}; "
+              f"{sum(times['dp']) / 2:.2f} images/s against the single estimator's "
+              f"{sum(times['single']) / 2:.2f} (host clock, in turns) ({card})")
+    # the overflow switch on phase e's crowded 720p frames, decided over the chunks
+    crowd_hw = (720, 1280)
+    sizes = image.scale_sizes(*crowd_hw, DEFAULT.inference.scale_search, 368, 8)
+    geoms = [g[:2] for g in sizes]
+    scenes = [crowded_scene(sizes, n, seed) for n, seed in ((32, 0), (32, 1), (8, 2), (8, 3))]
+    heats = [torch.cat([sc[0][i] for sc in scenes]) for i in range(len(sizes))]
+    pafs = [torch.cat([sc[1][i] for sc in scenes]) for i in range(len(sizes))]
+    small_k = dataclasses.replace(DEFAULT, inference=dataclasses.replace(
+        DEFAULT.inference, max_peaks=24))
+    reps = [_MapsReplica(small_k, heats, pafs, geoms, crowd_hw, dev) for _ in range(2)]
+    ops.reset_launch_counts()
+    tables = dp_inf.run_chunks(reps, np.arange(4)[:, None], None, None)
+    torch.cuda.synchronize()
+    count(counts)
+    alone = [reps[0]._scores(np.arange(2 * i, 2 * i + 2)[:, None], None, None) for i in (0, 1)]
+    for i, s in enumerate(alone):
+        forced = decode_scores_batch(*s, small_k.inference, overflow=True)
+        if not all(torch.equal(tables[key][2 * i:2 * i + 2], forced[key]) for key in forced):
+            raise AssertionError(f"crowded chunk {i}: not the score-order tables")
+    own = decode_scores_batch(*alone[1], small_k.inference)
+    if torch.equal(own["peak_xs"], tables["peak_xs"][2:]):
+        raise AssertionError("the sparse chunk alone decodes as in the switched batch")
+    _say("j", "the crowded 720x1280 frames at max_peaks 24: a chunk of two 32-person frames "
+              "overflows, a chunk of two 8-person frames does not; run_chunks switches both "
+              "chunks' tables to score order (equal to each chunk decoded with the switch on; "
+              "the sparse chunk alone keeps scan order): pass")
+    del heats, pafs, scenes, reps, tables, alone, own, dp
+
+    # 5. the scale-sharded pyramid over a 1- and a 2-entry mesh
+    one = Mesh([dev], ("data",))
+    for mesh in (one, two):
+        pyramid.sharded_process(est, imgs8[0], mesh)          # warm: replicas, cuDNN
+        ops.reset_launch_counts()
+        people = pyramid.sharded_process(est, imgs8[0], mesh)["people"]
+        torch.cuda.synchronize()
+        c5 = count(counts)
+        if c5["peaks"] != 1 or c5["pyramid_peaks"] or c5["block1"] != mesh.size:
+            raise AssertionError(f"sharded_process over {mesh.size}: launches {c5}")
+        ops.reset_launch_counts()
+        batched = pyramid.sharded_process_batch(est, imgs8[:2], pyramid.data_scale_mesh(
+            mesh.size, [dev] * mesh.size))
+        torch.cuda.synchronize()
+        c5b = count(counts)
+        if c5b["peaks"] != 1 or c5b["pyramid_peaks"] or len(batched) != 2:
+            raise AssertionError(f"sharded_process_batch over {mesh.size}: launches {c5b}")
+        _say("j", f"sharded_process over a {mesh.size}-entry mesh (368x368, 4 scales, bf16): "
+                  f"{len(people)} people, launches {c5}; sharded_process_batch of 2 over a "
+                  f"(1, {mesh.size}) mesh: {[len(b['people']) for b in batched]} people, launches "
+                  f"{c5b}: pass")
+    f32cfg = dataclasses.replace(DEFAULT, model=dataclasses.replace(
+        DEFAULT.model, compute_dtype="float32"))
+    est32 = PoseEstimator(f32cfg, seed=0, device="cuda")
+    _scale_heads(torch, est32, imgs8[0])
+    maps = {}
+    for mesh in (one, two):
+        maps[mesh.size] = pyramid.sharded_maps(replicate_module(est32.model, mesh),
+                                               list(mesh.devices.flat), f32cfg, imgs8[:2])
+    rel_maps = max(((a - b).norm() / b.norm()).item() for a, b in zip(maps[2], maps[1]))
+    if not rel_maps <= 1e-4:
+        raise AssertionError(f"sharded maps over 1 and 2 entries: relative L2 {rel_maps}")
+    _say("j", f"sharded pyramid maps in f32, 2 images x 4 scales over 1 and 2 entries: relative "
+              f"L2 {rel_maps:.2e} (<= 1e-4): pass")
+    del maps
+
+    # 6. the spatially tiled estimator on a 1104x1104 image over 1 and 2 tiles
+    big = rng.integers(0, 256, (1104, 1104, 3)).astype(np.uint8)
+    x = image.normalize(torch.from_numpy(big).to(dev), "bgr")
+    x = image.pad_right_down(image.resize_bilinear(x, 368, 368), 8, image.PAD_NORM)[0][None]
+    outs = {n: spatial.build_spatial_forward(est32.model, Mesh([dev] * n, ("spatial",)))(x)
+            for n in (1, 2)}
+    rel_sp = max(((a - b).norm() / b.norm()).item() for a, b in zip(outs[2], outs[1]))
+    counts32 = {n: len(spatial.SpatialPoseEstimator(est32, Mesh([dev] * n, ("spatial",)))
+                       .process(big)["people"]) for n in (1, 2)}
+    if not (rel_sp <= 1e-4 and counts32[1] == counts32[2]):
+        raise AssertionError(f"spatial f32: relative L2 {rel_sp}, people {counts32}")
+    # block 1 of each scale over 2 tiles (2-row halo, cropped pooled row):
+    # bit-equal to the whole image's kernel call, and within phase b's rule
+    # of the plain version; then one bf16 cuDNN conv after it, over the
+    # tiles and over the whole image, and the bf16 people with block1 off
+    x0 = image.normalize(torch.from_numpy(big).to(dev), "bgr")
+    vgg = est.model.vgg
+    wts = (vgg.conv1_1.weight.permute(2, 3, 1, 0), vgg.conv1_1.bias,
+           vgg.conv1_2.weight.permute(2, 3, 1, 0), vgg.conv1_2.bias)
+    b1_rule, conv_diff = [], []
+    with torch.inference_mode():
+        for rh, rw, _, _ in image.pyramid_sizes(DEFAULT.inference, DEFAULT.model, *big.shape[:2]):
+            xs = image.pad_right_down(image.resize_bilinear(x0, rh, rw), 8, image.PAD_NORM)[0][None]
+            nchw = xs.permute(0, 3, 1, 2)
+            bounds = [r * 8 for r in spatial.tile_bounds(xs.shape[1] // 8, 2)]
+            tiles = spatial._Tiles([nchw[:, :, a:b] for a, b in zip(bounds, bounds[1:])], bounds,
+                                   [dev, dev])
+            b1_tiles = spatial._block1(tiles, [est.model, est.model])
+            tiled, whole = b1_tiles.gather(), vgg.block1(nchw)
+            if not torch.equal(tiled, whole):
+                raise AssertionError(f"block1 over 2 tiles at {tuple(xs.shape[1:3])}: differs from "
+                                     f"the whole image's call by {(tiled.float() - whole.float()).abs().max().item()}")
+            truth = block1_mod.block1_plain(xs, *wts, dtype=torch.float32)
+            d_got = (tiled.permute(0, 2, 3, 1).float() - truth).abs().max().item()
+            d_plain = (block1_mod.block1_plain(xs, *wts).float() - truth).abs().max().item()
+            if not d_got <= 2 * d_plain + 1e-3:
+                raise AssertionError(f"block1 tiles at {tuple(xs.shape[1:3])}: err {d_got} > 2 x "
+                                     f"plain {d_plain} + 1e-3")
+            b1_rule.append(f"{xs.shape[1]}x{xs.shape[2]} {d_got:.3e} / {d_plain:.3e}")
+            c_tiles = spatial._conv(b1_tiles, [est.model, est.model], "vgg.conv2_1",
+                                    torch.bfloat16).gather()
+            c_whole = torch.relu(vgg.conv2_1(whole, torch.bfloat16))
+            conv_diff.append(((c_tiles != c_whole).float().mean().item(),
+                              (c_tiles.float() - c_whole.float()).abs().max().item()))
+    _say("j", "block1 of the 1104x1104 image's 4 scales over 2 tiles: bit-equal to the whole "
+              "image's kernel call; err vs f32 truth, tiles / plain bf16: " + "; ".join(b1_rule)
+              + " (bound 2x + 1e-3): pass. The bf16 cuDNN conv2_1 after it, over the tiles "
+              "against the whole image: share of outputs that differ / max abs diff "
+              + ", ".join(f"{a:.2e} / {d:.3e}" for a, d in conv_diff))
+    vgg.pallas_block1 = False
+    try:
+        off = {n: len(spatial.SpatialPoseEstimator(est, Mesh([dev] * n, ("spatial",)))
+                      .process(big)["people"]) for n in (1, 2)}
+    finally:
+        vgg.pallas_block1 = True
+    bf = {}
+    for n in (1, 2):
+        sp = spatial.SpatialPoseEstimator(est, Mesh([dev] * n, ("spatial",)))
+        sp.process(big)                                        # warm
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        people = sp.process(big)["people"]
+        torch.cuda.synchronize()
+        bf[n] = (len(people), (time.perf_counter() - t0) * 1e3, count(counts))
+    if bf[2][2]["block1"] != 8 or bf[2][2]["pyramid_peaks"] != 1 or bf[2][2]["assoc"] != 1:
+        raise AssertionError(f"spatial bf16 over 2 tiles: launches {bf[2][2]}")
+    _say("j", f"SpatialPoseEstimator, 1104x1104, 4 scales: f32 final-stage maps at scale 1.0 "
+              f"over 1 and 2 tiles within relative L2 {rel_sp:.2e} (<= 1e-4), people {counts32[1]}"
+              f" / {counts32[2]}; bf16 people {bf[1][0]} / {bf[2][0]} (with block1 off "
+              f"{off[1]} / {off[2]}), latency {bf[1][1]:.1f} / "
+              f"{bf[2][1]:.1f} ms (host clock), launches over 2 tiles {bf[2][2]}: pass ({card})")
+    del est32, outs, x, x0, tiles, b1_tiles, tiled, whole, truth, c_tiles, c_whole
+
+    # 7. the checkpointable feed: GrainBatches over the sampler, 2 spawned
+    # workers, fed from phase i's records in memory; train stops at step 5 and
+    # resumes to step 10, bit for bit
+    torch.backends.cudnn.deterministic = True
+    records = list(tpr.read_samples(os.path.join(data_dir, "coco.tpr")))[:30]
+    gcfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, checkpoint_every=5))
+
+    def feed():
+        return source_batches(records, gcfg, epochs=None, shuffle_seed=0, worker_count=2)
+
+    def run(workdir, steps):
+        f = feed()
+        try:
+            return train(gcfg, f, workdir=workdir, max_steps=steps, seed=0, device="cuda")
+        finally:
+            f.close()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as whole, tempfile.TemporaryDirectory() as part:
+        ops.reset_launch_counts()
+        ran = run(whole, 10)
+        torch.cuda.synchronize()
+        c7 = count(counts)
+        first = run(part, 5)
+        resumed = run(part, 10)
+        if (ran["steps"], first["steps"], resumed["steps"]) != (10, 5, 5) or c7["gt"] != 10:
+            raise AssertionError(f"grain feed: steps {ran['steps']}/{first['steps']}/"
+                                 f"{resumed['steps']}, launches {c7}")
+        for name, p in ran["state"]["params"].items():
+            if not torch.equal(p, resumed["state"]["params"][name]):
+                raise AssertionError(f"grain feed resume: {name} differs")
+    torch.backends.cudnn.deterministic = False
+    _say("j", f"train() from source_batches over {len(records)} records of phase i in memory (2 "
+              f"spawned workers): 10 steps, and 5 then 5 resumed from the checkpoint's feed "
+              f"position, reach the same parameters bit for bit; launches {c7}; "
+              f"{time.perf_counter() - t0:.1f} s for the three runs: pass")
+    del ran, first, resumed, records
+
+    # 8. eval --dp and serve --dp on the card: auto resolves to the one device
+    ann, images = os.path.join(data_dir, "annotations.json"), os.path.join(data_dir, "images")
+    base = ["eval", "--annotations", ann, "--images", images, "--checkpoint",
+            os.path.join(data_dir, "weights"), "--buckets", "default", "--max-images", "6"]
+    ops.reset_launch_counts()
+    plain = _cli_json(tcli, base)
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        auto = _cli_json(tcli, [*base, "--dp", "auto"])
+    torch.cuda.synchronize()
+    c8e = count(counts)
+    if auto != plain or "data-parallel" in err.getvalue():
+        raise AssertionError(f"eval --dp auto: {auto} against {plain}")
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        rc = tcli.main([*base, "--dp", "2"])
+    if rc != 2 or "error: --dp 2 exceeds the 1 visible device(s)" not in err.getvalue():
+        raise AssertionError(f"eval --dp 2: exit {rc}, {err.getvalue()!r}")
+    port = free_port()
+    reply: dict = {}
+
+    def client():
+        try:
+            deadline = time.time() + 300
+            while time.time() < deadline:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5):
+                        break
+                except OSError:
+                    time.sleep(0.5)
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/pose",
+                                         data=png_bytes(imgs8[1]), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                reply["status"], reply["body"] = r.status, json.loads(r.read())
+        finally:
+            os.kill(os.getpid(), signal.SIGINT)           # ends serve.main's wait
+
+    th = threading.Thread(target=client, daemon=True)
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()) as err:
+        th.start()
+        rc = tserve.main(["--port", str(port), "--dp", "auto", "--checkpoint",
+                          os.path.join(data_dir, "weights"), "--max-batch", "2"])
+    th.join(timeout=60)
+    torch.cuda.synchronize()
+    c8s = count(counts)
+    want_serve = {"block1": 4, "pyramid_peaks": 1, "sample": 1, "assoc": 1, "gt": 0, "peaks": 0}
+    if c8s != want_serve:
+        raise AssertionError(f"serve --dp auto, one request: launches {c8s}, want {want_serve}")
+    served = PoseEstimator(DEFAULT, params=restore_params(os.path.join(data_dir, "weights")),
+                           device="cuda")
+    want = served.process_batch(imgs8[1:2], valid_hw=np.asarray([[368, 368]], np.int32))[0]
+    if rc != 0 or reply.get("status") != 200 or "data-parallel" in err.getvalue():
+        raise AssertionError(f"serve --dp auto: exit {rc}, reply {reply.get('status')}")
+    _same_people_strict(reply["body"]["people"], want, "serve --dp auto")
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        rc = tserve.main(["--dp", "2"])
+    if rc != 2 or "error: --dp 2 exceeds the 1 visible device(s)" not in err.getvalue():
+        raise AssertionError(f"serve --dp 2: exit {rc}, {err.getvalue()!r}")
+    _say("j", f"eval --dp auto (buckets, 6 images) prints the JSON of eval without --dp "
+              f"(launches of both evals {c8e}); serve --dp auto answers a request with the "
+              f"people of process_batch at its device batch ({len(want)}; launches {c8s}); "
+              f"--dp 2 exits 2 with the reference's message, for both: pass")
+    _say("j", f"phase j took {time.perf_counter() - t_phase:.1f} s; launches over its paths "
+              f"{counts} ({card})")
     return counts
 
 
@@ -1929,6 +2472,10 @@ def main(parent: str | None = None) -> int:
     try:
         counts_data_train = _data_train_phase(torch, np, card, data_dir, data_files,
                                               1.0 / step_s)
+        # --- j. the multi-device slice, on phase i's data ---------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts_multi = _multidevice_phase(torch, np, card, data_dir)
     finally:
         import shutil
 
@@ -1936,7 +2483,7 @@ def main(parent: str | None = None) -> int:
 
     print("the timings and the training path once more, for a reader of the last lines:",
           flush=True)
-    for line in [line for line in _SAID if line[:3] in ("[e]", "[f]", "[h]", "[i]")]:
+    for line in [line for line in _SAID if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]")]:
         print(line, flush=True)
     kernels = []
     for kern in ops.KERNELS:
@@ -1944,7 +2491,8 @@ def main(parent: str | None = None) -> int:
                         "replaces": kern.replaces,
                         "launches": (counts_infer[kern.name] + counts_train[kern.name]
                                      + counts_full[kern.name] + counts_serve[kern.name]
-                                     + counts_eval[kern.name] + counts_data_train[kern.name]),
+                                     + counts_eval[kern.name] + counts_data_train[kern.name]
+                                     + counts_multi[kern.name]),
                         **record[kern.name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

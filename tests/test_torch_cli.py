@@ -448,3 +448,78 @@ def test_finetune_leaves_every_vgg_tensor_bit_identical(train_file, f32_defaults
             assert np.array_equal(end["vgg"][layer][leaf], arr), (layer, leaf)
     assert not np.array_equal(end["stage2_L1"]["conv1"]["kernel"],
                               start["stage2_L1"]["conv1"]["kernel"])
+
+
+# --- the multi-device slice: --grain, eval --dp, serve --dp ----------------------------------
+
+
+def test_train_grain_feed_keeps_its_position_in_the_checkpoint(f32_defaults, capsys, tmp_path):
+    """`train --grain --data-workers 0` over an HDF5 dataset: the
+    checkpointable feed of data/grain_pipeline.py, its position (records
+    consumed, in its epoch) in the step's checkpoint, and a second run
+    resumes from it."""
+    from tpupose_torch.data import hdf5 as thdf5
+
+    path = str(tmp_path / "ds.h5")
+    rng = np.random.default_rng(2)
+    with thdf5.SampleWriter(path) as w:
+        for i in range(6):
+            joints = np.full((1, 18, 3), 2.0, np.float32)
+            joints[0, :, :2] = rng.uniform(20, 80, (18, 2))
+            joints[0, :, 2] = 0.0
+            w.add(rng.integers(0, 255, (96, 112, 3)).astype(np.uint8),
+                  np.full((96, 112), 255, np.uint8), joints,
+                  np.asarray([56.0, 48.0], np.float32), np.float32(0.3 + i / 100))
+
+    def train(steps):
+        rc, out, err = _run(tcli, ["train", "--dataset", path, "--grain", "--data-workers", "0",
+                                   "--workdir", str(tmp_path / "run"), "--max-steps", str(steps),
+                                   *TRAIN], capsys)
+        assert rc == 0, err
+        return json.loads(out)
+
+    assert train(2)["steps"] == 2
+    with np.load(os.path.join(tmp_path, "run", "checkpoints", "step_000000002.npz")) as f:
+        assert json.loads(f["data_state"].tobytes()) == {
+            "seed": 0, "shard": [0, 1], "epoch": 0, "position": 4, "version": 1}
+    assert train(3)["steps"] == 1
+    with np.load(os.path.join(tmp_path, "run", "checkpoints", "step_000000003.npz")) as f:
+        assert json.loads(f["data_state"].tobytes())["epoch"] == 1     # 6 records, batch 2
+
+
+def test_eval_dp_requires_buckets_with_the_reference_text(capsys):
+    argv = ["eval", "--annotations", "a.json", "--images", "imgs", "--dp", "2"]
+    rc, out, err = _run(tcli, [*argv, "--device", "cpu"], capsys)
+    assert rc == 2 and out == ""
+    jrc, _, jerr = _run(jcli, argv, capsys)
+    assert jrc == 2
+    want = "error: --dp requires --buckets (per-image eval never builds device batches to shard)"
+    assert want in err and want in jerr
+    rc, _, err = _run(tcli, [*argv, "--buckets", "default", "--device", "cpu"], capsys)
+    assert rc == 2 and "error: --dp 2 exceeds the 1 visible device(s)" in err
+
+
+def test_eval_dp_1_prints_the_same_json(coco, f32_defaults, capsys):
+    argv = ["eval", "--dataset", coco["ref_tpr"], "--weights", coco["h5"], *EVAL_MODEL,
+            "--buckets", "96x128", "--eval-batch", "4", "--max-images", "3", "--device", "cpu"]
+    rc, plain, err = _run(tcli, argv, capsys)
+    assert rc == 0, err
+    rc, dp, err = _run(tcli, [*argv, "--dp", "1"], capsys)
+    assert rc == 0 and "data-parallel" not in err, err
+    assert json.loads(dp) == json.loads(plain)
+
+
+@pytest.mark.parametrize("spec, message", [
+    ("2", "error: --dp 2 exceeds the 1 visible device(s)"),
+    ("0", "error: --dp must be >= 1, got 0"),
+    ("many", "error: --dp must be a device count or 'auto', got 'many'"),
+])
+def test_serve_dp_is_validated_before_the_model_is_built(capsys, monkeypatch, spec, message):
+    import tpupose_torch.serve as tserve
+
+    def no_model(*a, **k):
+        raise AssertionError("the model was built")
+
+    monkeypatch.setattr(tcli, "_estimator", no_model)
+    rc, out, err = _run(tserve, ["--dp", spec, "--device", "cpu"], capsys)
+    assert rc == 2 and message in err

@@ -646,3 +646,158 @@ def test_one_request_through_serve_on_the_card_equals_process(cuda):
         srv.shutdown()
     assert people == json.loads(json.dumps(est.process(img)["people"]))
     assert len(people) > 0
+
+
+# --- the multi-device slice on the one card ---------------------------------------------------
+
+
+def test_remat_step_on_cuda_equals_remat_off(cuda):
+    """A small f32 train step with ``remat`` off and on, deterministic cuDNN:
+    the losses bit-equal, the updated parameters within 1e-5."""
+    from tpupose_torch.config import AugmentConfig, ModelConfig, PoseConfig, TrainConfig
+    from tpupose_torch.data.pipeline import synthetic_batches
+    from tpupose_torch.gt.augment import batch_params
+    from tpupose_torch.models import OpenPose
+    from tpupose_torch.training import create_state, make_train_step
+
+    cfg = PoseConfig(model=ModelConfig(boxsize=64, num_stages=2, compute_dtype="float32"),
+                     augment=AugmentConfig(max_persons=3),
+                     train=TrainConfig(batch_size=2, base_lr=1e-4))
+    batch = next(synthetic_batches(cfg, 96, 96, seed=4))
+    draws = batch_params(torch.Generator().manual_seed(4), cfg.augment, 2)
+    init = OpenPose(num_stages=2, dtype=torch.float32)
+    init.reset_parameters(torch.Generator().manual_seed(4))
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for remat in (False, True):
+            state, tx = create_state(cfg, init.state_dict(), "cuda")
+            model = OpenPose(num_stages=2, dtype=torch.float32, remat=remat)
+            tree, losses = make_train_step(cfg, model, tx)(state.tree(), draws, batch)
+            out.append((losses, tree["params"]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, p0), (l1, p1) = out
+    assert all(torch.equal(l0[k], l1[k]) for k in l0)
+    assert max((p1[k] - v).abs().max().item() for k, v in p0.items()) <= 1e-5
+
+
+def test_dp_estimator_two_replicas_on_one_card(cuda):
+    """Two replicas on cuda:0: each chunk's people are the estimator's on
+    that chunk with the batch-wide overflow switch; block1 once per chunk."""
+    from tpupose_torch import ops
+    from tpupose_torch.config import InferenceConfig, ModelConfig, PoseConfig
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.parallel.inference import DataParallelEstimator
+    from tpupose_torch.parallel.sharding import Mesh
+
+    est = PoseEstimator(PoseConfig(model=ModelConfig(num_stages=2),
+                                   inference=InferenceConfig(scale_search=(1.0,))),
+                        seed=0, device="cuda")
+    with torch.no_grad():
+        for branch in (est.model.stage2_L1, est.model.stage2_L2):
+            branch.out.weight.mul_(3000.0)
+    imgs = (np.random.default_rng(3).random((4, 96, 96, 3)) * 255).astype(np.uint8)
+    dp = DataParallelEstimator(est, Mesh([cuda, cuda], ("data",)))
+    ops.reset_launch_counts()
+    got = dp.process_batch(imgs)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    assert launched["block1"] == 2 and launched["assoc"] == 2 and launched["pyramid_peaks"] == 2
+    scored = [est._scores(imgs[i:i + 2], None, None) for i in (0, 2)]
+    k = est.cfg.inference.max_peaks
+    overflow = any(bool((torch.isfinite(f).sum(-1) > k).any()) for f, _, _ in scored)
+    want = sum((est._finish(2, est._tables(s, overflow)) for s in scored), [])
+    assert [len(p) for p in got] == [len(p) for p in want]
+    for pg, pw in zip(got, want):
+        for a, b in zip(pg, pw):
+            assert a["num_parts"] == b["num_parts"] and abs(a["score"] - b["score"]) <= 1e-4
+            assert {n: (v["x"], v["y"]) for n, v in a["keypoints"].items()} == \
+                {n: (v["x"], v["y"]) for n, v in b["keypoints"].items()}
+
+
+def test_spatial_forward_over_two_tiles_on_one_card(cuda):
+    """Block 1 of two tiles through the block1 kernel (2-row halo, cropped
+    pooled row) bit-equal to the whole image's kernel call; the f32 network's
+    final maps over 2 tiles within relative L2 1e-4 of the whole image's."""
+    from tpupose_torch.models import OpenPose
+    from tpupose_torch.parallel import spatial
+    from tpupose_torch.parallel.sharding import Mesh
+
+    x = _rand((1, 88, 64, 3), 0.3, 21, cuda)
+    bf = OpenPose(num_stages=2, dtype=torch.bfloat16, pallas_block1=True)
+    bf.reset_parameters(torch.Generator().manual_seed(1))
+    bf = bf.to(cuda, memory_format=torch.channels_last).eval()
+    with torch.no_grad():
+        nchw = x.permute(0, 3, 1, 2)
+        whole = bf.vgg.block1(nchw)
+        bounds = [0, 40, 88]
+        tiles = spatial._Tiles([nchw[:, :, a:b] for a, b in zip(bounds, bounds[1:])], bounds,
+                               [cuda, cuda])
+        got = spatial._block1(tiles, [bf, bf]).gather()
+    assert torch.equal(got, whole)                   # the kernel is row-local
+    f32 = OpenPose(num_stages=2, dtype=torch.float32)
+    f32.reset_parameters(torch.Generator().manual_seed(1))
+    f32 = f32.to(cuda, memory_format=torch.channels_last).eval()
+    with torch.no_grad():
+        want = f32(x)[-1]
+    out = spatial.build_spatial_forward(f32, Mesh([cuda, cuda], ("spatial",)))(x)
+    for a, b in zip(out, want):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-4
+
+
+def test_paths_with_a_mesh_entry_on_every_card_launch_on_each_card(cuda):
+    """The DP estimator, the sharded pyramid and the tiled forward over one
+    mesh entry per card: every replica's, canvas chunk's and tile's kernels
+    launch on its own card (each launch makes its tensors' card current),
+    and the results equal those of the same mesh with every entry on cuda:0."""
+    from tpupose_torch import ops
+    from tpupose_torch.config import ModelConfig, PoseConfig
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.parallel import pyramid, spatial
+    from tpupose_torch.parallel.inference import DataParallelEstimator
+    from tpupose_torch.parallel.sharding import Mesh
+
+    def same(got, want):
+        assert [len(p) for p in got] == [len(p) for p in want]
+        for pg, pw in zip(got, want):
+            for a, b in zip(pg, pw):
+                assert a["num_parts"] == b["num_parts"] and abs(a["score"] - b["score"]) <= 1e-4
+                assert {k: (v["x"], v["y"]) for k, v in a["keypoints"].items()} == \
+                    {k: (v["x"], v["y"]) for k, v in b["keypoints"].items()}
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    one = [torch.device("cuda", 0)] * n
+    est = PoseEstimator(PoseConfig(model=ModelConfig(num_stages=2),
+                                   inference=InferenceConfig(scale_search=(0.5, 1.0))),
+                        seed=0, device="cuda:0")
+    with torch.no_grad():
+        for branch in (est.model.stage2_L1, est.model.stage2_L2):
+            branch.out.weight.mul_(3000.0)
+    imgs = (np.random.default_rng(3).random((2 * n, 96, 96, 3)) * 255).astype(np.uint8)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ops.reset_launch_counts()
+        got = DataParallelEstimator(est, Mesh(cards, ("data",))).process_batch(imgs)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        assert ops.launch_counts()["block1"] == 2 * n and ops.launch_counts()["assoc"] == n
+        want = DataParallelEstimator(est, Mesh(one, ("data",))).process_batch(imgs)
+        assert sum(map(len, want)) > 0
+        same(got, want)
+        mesh2 = pyramid.data_scale_mesh(2, cards[:2 * (n // 2)])
+        mesh1 = pyramid.data_scale_mesh(2, one[:2 * (n // 2)])
+        sharded = [[p["people"] for p in pyramid.sharded_process_batch(est, imgs, m)]
+                   for m in (mesh2, mesh1)]
+        same(*sharded)
+        x = image.normalize(torch.from_numpy(imgs[0]).to(cuda), "bgr")
+        x = image.resize_bilinear(x, 8 * 8 * n, 96)[None]
+        tiled = [spatial.build_spatial_forward(est.model, Mesh(m, ("spatial",)))(x)
+                 for m in (cards, one)]
+        for a, b in zip(*tiled):
+            assert a.device == cards[0] and ((a - b).norm() / b.norm()).item() <= 1e-6
+    finally:
+        torch.backends.cudnn.deterministic = False

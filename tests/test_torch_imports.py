@@ -3,7 +3,8 @@ jax/flax/optax/orbax/grain, ``import tpupose_torch`` (and its data path)
 loads neither h5py nor cv2, and its own copies of the reference's
 numpy-only modules (config, topology, drawing, config_io, models/caffe,
 the data path's coco_eval, coco_prep, hdf5, tpr, pipeline, pack_tpr and
-the C sources of its host libraries) cannot drift from them.
+the C sources of its host libraries, and parallel/'s pad_batch and
+grain_pipeline's Hdf5Source and PadForBatch) cannot drift from them.
 """
 
 import ast
@@ -54,7 +55,10 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
     assert len(files) > 30 and any(f.endswith("training/loop.py") for f in files)
     assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py", "serve.py", "cli.py",
             "config_io.py", "caffe.py", "coco_eval.py", "coco_prep.py", "hdf5.py", "tpr.py",
-            "rle.py", "pack_tpr.py"} <= {os.path.basename(f) for f in files}
+            "rle.py", "pack_tpr.py", "grain_pipeline.py"} <= {os.path.basename(f) for f in files}
+    assert {f"tpupose_torch/parallel/{m}.py" for m in
+            ("__init__", "distributed", "sharding", "inference", "pyramid", "spatial")} <= \
+        {os.path.relpath(f, ROOT) for f in files}
     bad = {os.path.relpath(f, ROOT): sorted(imported_roots(f) & FORBIDDEN) for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
 
@@ -70,6 +74,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import tpupose_torch.models.caffe\n"
         "from tpupose_torch.decode import decode_maps, decode_maps_batch, to_people\n"
         "from tpupose_torch.data import coco_eval, coco_prep, hdf5, pack_tpr, rle, tpr\n"
+        "from tpupose_torch.data import grain_pipeline\n"
+        "import tpupose_torch.parallel\n"
+        "from tpupose_torch.parallel import distributed, inference, pyramid, sharding, spatial\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print('LOADED', bad)\n"
         "print('OPTIONAL', sorted(m for m in sys.modules if m in ('h5py', 'cv2')))\n"
@@ -277,6 +284,30 @@ def test_data_copies_equal_the_reference(ref, port, names):
     pipeline.py, the native library's loading and ``shard="auto"``, which
     differ by design and are held to the reference by tests/test_torch_data.py)."""
     assert _code(port, names) == _code(ref, names)
+
+
+def test_parallel_and_grain_copies_equal_the_reference():
+    """The port's copies of ``pad_batch`` (and its pad values),
+    ``pad_to_multiple``, ``Hdf5Source`` and ``PadForBatch.map``: the
+    reference's code but for docstrings and comments."""
+    names = ["pad_to_multiple", "pad_batch"]
+    assert _code("tpupose_torch/parallel/sharding.py", names) == \
+        _code("tpupose/parallel/sharding.py", names)
+    assert _code("tpupose_torch/data/grain_pipeline.py", ["Hdf5Source"]) == \
+        _code("tpupose/data/grain_pipeline.py", ["Hdf5Source"])
+
+    def pad_map(path):
+        with open(os.path.join(ROOT, path)) as f:
+            tree = _Normalise().visit(ast.parse(f.read()))
+        cls = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == "PadForBatch")
+        return [ast.dump(n) for n in cls.body if isinstance(n, ast.FunctionDef)]
+
+    assert pad_map("tpupose_torch/data/grain_pipeline.py") == \
+        pad_map("tpupose/data/grain_pipeline.py")
+    import tpupose.parallel.sharding as jsharding
+    import tpupose_torch.parallel.sharding as tsharding
+
+    assert tsharding._PAD_VALUES == jsharding._PAD_VALUES
 
 
 def test_tpr_batches_copy_differs_from_the_reference_only_in_docstrings():

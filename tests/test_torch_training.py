@@ -553,3 +553,50 @@ def test_train_loop_refuses_a_wrong_batch_size_and_a_missing_card(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train(cfg, synthetic_batches(cfg, 96, 96), workdir=str(tmp_path), max_steps=1)
+
+
+def test_remat_gradients_equal_the_plain_network_and_jax(setup):
+    """``OpenPose(remat=True)`` recomputes each stage branch in the backward
+    pass: in f32 its losses and gradients equal those of ``remat=False`` bit
+    for bit, in f64 both equal the JAX network's with ``remat=True`` as the
+    gradient test holds them; under ``no_grad`` the forward is unchanged."""
+    _, params, _ = setup
+    batch = small_batch(np.random.default_rng(1), h=48, w=48)
+    draws = jax_draws(jax.random.PRNGKey(3), 2, J_CFG64.augment)
+    t = jax_targets(batch, draws, box=32)
+    tt = {k: torch.from_numpy(np.array(v)) for k, v in t.items()}
+
+    def port_grads(model):
+        leaves = {k: v.requires_grad_() for k, v in weights.from_flax(params).items()}
+        outs = torch.func.functional_call(model, leaves, (tt["images_norm"].to(model.dtype),))
+        total = stagewise_losses(outs, tt["paf_gt"], tt["heat_gt"], tt["label_mask"])["total"]
+        return total.detach(), dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+
+    plain = port_grads(OpenPose(num_stages=2, dtype=torch.float32))
+    remat = port_grads(OpenPose(num_stages=2, dtype=torch.float32, remat=True))
+    assert torch.equal(plain[0], remat[0])
+    assert all(torch.equal(plain[1][k], remat[1][k]) for k in plain[1])
+
+    with jax.enable_x64(True):
+        jmodel = JOpenPose(num_stages=2, dtype=jnp.float64, head_dtype=jnp.float64, remat=True)
+
+        def loss_fn(p):
+            outs = jmodel.apply({"params": p}, t["images_norm"])
+            return j_stagewise_losses(outs, t["paf_gt"], t["heat_gt"], t["label_mask"])["total"]
+
+        want = weights.from_flax(numpy_tree(jax.grad(loss_fn)(params)))
+    for remat_on in (False, True):
+        _, got = port_grads(OpenPose(num_stages=2, dtype=torch.float64,
+                                     head_dtype=torch.float64, remat=remat_on))
+        for name, g in got.items():
+            scale = want[name].abs().max().item()
+            np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=1e-4,
+                                       atol=1e-4 * scale, err_msg=name)
+    model = OpenPose(num_stages=2, dtype=torch.float32, remat=True)
+    model.load_state_dict(weights.from_flax(params))
+    with torch.no_grad():
+        a = model(tt["images_norm"])
+    model.remat = False
+    with torch.no_grad():
+        b = model(tt["images_norm"])
+    assert all(torch.equal(x, y) for pa, pb in zip(a, b) for x, y in zip(pa, pb))

@@ -121,6 +121,14 @@ def _config(args):
     return cfg
 
 
+def _dp_devices(args) -> list:
+    """The devices ``--dp`` counts: every visible CUDA device, or the CPU
+    with ``--device cpu``."""
+    from tpupose_torch.parallel.sharding import local_devices
+
+    return local_devices(getattr(args, "device", "cuda"))
+
+
 def _estimator(args, cfg=None):
     """PoseEstimator from the common model args: a checkpoint directory of
     the port (``--checkpoint``) wins over reference ``--weights``."""
@@ -329,29 +337,42 @@ def _run_training(args, frozen_vgg: bool) -> int:
             print(f"warning: VGG19 npz {args.vgg19_npz} had no effect "
                   "(missing file or no matching arrays)", file=sys.stderr)
 
+    # under torchrun (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK set) every
+    # process joins one group and the loop trains data-parallel over it
+    from tpupose_torch.parallel.distributed import init_multihost
+
+    init_multihost()
+    # shard=None: every process reads the same stream and feeds the loop
+    # the same global batch, of which each rank keeps its rows
+    # (training/loop.py); the JAX package shards the records instead
+    # (shard="auto") because it places one global batch over its mesh
     if args.dataset == "synthetic":
         batches = pipeline.synthetic_batches(cfg, n_batches=args.max_steps or 10)
+    elif getattr(args, "grain", False):
+        # the checkpointable feed over an HDF5 file: the data position
+        # rides every checkpoint, so preempted runs resume mid-epoch
+        from tpupose_torch.data.grain_pipeline import hdf5_grain_batches
+
+        batches = hdf5_grain_batches(args.dataset, cfg, shard=None,
+                                     worker_count=getattr(args, "data_workers", 0))
     else:
-        # shard="auto": under torch.distributed each process feeds its own
-        # disjoint record slice; single-process runs read everything.
         # .tpr datasets take the native threaded-inflate path; pre-padded
         # ones (data/pack_tpr.py --pre-pad) skip host-side prep entirely,
         # and their position rides every checkpoint.
-        batches = pipeline.dataset_batches(args.dataset, cfg, shard="auto")
+        batches = pipeline.dataset_batches(args.dataset, cfg, shard=None)
 
     val_batches = None
     if getattr(args, "val_dataset", None):
         # the reference's fit_generator validation_data: a fresh pass
         # over the held-out set each time the loop validates (epochs=1,
-        # unshuffled; shard="auto" keeps multi-process batch counts equal)
+        # unshuffled)
         if args.val_dataset == "synthetic":
             def val_batches():
                 return pipeline.synthetic_batches(cfg, seed=997, n_batches=2)
         else:
             def val_batches():
                 return pipeline.dataset_batches(
-                    args.val_dataset, cfg, epochs=1, shuffle_seed=None,
-                    shard="auto",
+                    args.val_dataset, cfg, epochs=1, shuffle_seed=None, shard=None,
                 )
 
     try:
@@ -452,7 +473,27 @@ def cmd_eval(args) -> int:
         print("error: --annotations requires --images <dir>",
               file=sys.stderr)
         return 2
+    dp = getattr(args, "dp", None)
+    if dp:  # validate before paying for the model build
+        from tpupose_torch.parallel.inference import resolve_dp
+
+        if not getattr(args, "buckets", None):
+            print("error: --dp requires --buckets (per-image eval never "
+                  "builds device batches to shard)", file=sys.stderr)
+            return 2
+        try:
+            resolve_dp(dp, _dp_devices(args))
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     est = _estimator(args)
+    if dp:
+        from tpupose_torch.parallel.inference import wrap_dp
+
+        est, n_dp = wrap_dp(est, dp, _dp_devices(args))
+        if n_dp > 1:
+            print(f"data-parallel eval over {n_dp} devices",
+                  file=sys.stderr)
     runner = None
     if getattr(args, "buckets", None):
         from tpupose_torch.buckets import BucketedRunner, resolve_buckets
@@ -588,6 +629,12 @@ def main(argv=None) -> int:
         p.add_argument("--val-every", type=int, default=None,
                        help="steps between validation passes (default: "
                             "the checkpoint interval)")
+        p.add_argument("--grain", action="store_true",
+                       help="the checkpointable feed over an HDF5 dataset "
+                            "(data/grain_pipeline.py): exact mid-epoch resume "
+                            "after preemption")
+        p.add_argument("--data-workers", type=int, default=0,
+                       help="record-preparing processes of --grain (0 = in-process)")
         p.add_argument("--vgg19-npz", default=None, metavar="NPZ",
                        help="overlay VGG19 ImageNet conv weights from an "
                             ".npz onto the init (the reference's from_vgg "
@@ -618,6 +665,9 @@ def main(argv=None) -> int:
     )
     p.add_argument("--eval-batch", type=int, default=8,
                    help="batch size per bucket with --buckets")
+    p.add_argument("--dp", default=None, metavar="N|auto",
+                   help="split each bucketed device batch over N devices "
+                        "(requires --buckets; pair with --eval-batch >= N)")
     p.add_argument("--coco-results", default=None, metavar="JSON",
                    help="also write detections as pycocotools keypoint "
                         "results (17-kp COCO order; loadRes-compatible "

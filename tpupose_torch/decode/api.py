@@ -33,18 +33,10 @@ from tpupose_torch.ops import peaks as _peaks_op
 from tpupose_torch.ops import pyramid_peaks as _pyramid_op
 
 
-def decode_impl_batch(heatmaps, pafs, cfg: InferenceConfig,
-                      valid_hw=None) -> dict[str, torch.Tensor]:
-    """Batched decode. ``heatmaps``: (B, H, W, 19) or a ScaleSpace of
-    (B, Hl, Wl, 19) maps; ``pafs``: (B, H, W, 38) or a ScaleSpace of
-    (B, Hl, Wl, 38) maps.
-
-    ``valid_hw`` (optional (B, 2) int) restricts peaks to each image's
-    top-left rectangle [0, vh) x [0, vw). Returns rows (B, max_people,
-    18) int32 global peak ids (part * max_peaks + slot), score, cnt,
-    valid per person, and the peak tables peak_xs/peak_ys/peak_scores
-    (B, 18, max_peaks) that resolve the ids.
-    """
+def peak_scores_batch(heatmaps, cfg: InferenceConfig, valid_hw=None) -> tuple[torch.Tensor, int]:
+    """The first half of ``decode_impl_batch``: the masked peak scores
+    (B, 18, H*W) of the heat maps (full-res or a ScaleSpace), -inf off-peak
+    and outside each image's ``valid_hw`` rectangle, and the map width."""
     if isinstance(heatmaps, ScaleSpace):
         flats = _pyramid_op.pyramid_peak_scores(heatmaps, topology.NUM_PARTS, cfg.peak_sigma,
                                                 cfg.thre1)
@@ -58,8 +50,19 @@ def decode_impl_batch(heatmaps, pafs, cfg: InferenceConfig,
         lin = torch.arange(n, device=flats.device)
         inside = ((lin // w)[None, :] < vhw[:, :1]) & ((lin % w)[None, :] < vhw[:, 1:])
         flats = torch.where(inside[:, None, :], flats, torch.full_like(flats, -torch.inf))
+    return flats, w
+
+
+def decode_scores_batch(flats: torch.Tensor, w: int, pafs, cfg: InferenceConfig,
+                        overflow: bool | None = None) -> dict[str, torch.Tensor]:
+    """The second half of ``decode_impl_batch``: peak tables, pair scores,
+    association and assembly from ``peak_scores_batch``'s output.
+    ``overflow`` forces the peak tables' order (``decode.peaks.peak_tables``)
+    where the caller decided it over a larger batch; None decides it over
+    these images."""
+    b, c, n = flats.shape
     k = cfg.max_peaks
-    tables = _peaks.peak_tables(flats.reshape(b * c, n), w, k)
+    tables = _peaks.peak_tables(flats.reshape(b * c, n), w, k, overflow)
     peaks = {key: v.reshape(b, c, k) for key, v in tables.items()}
 
     prior, ok, n_a, n_b = _paf.pair_scores(
@@ -77,6 +80,22 @@ def decode_impl_batch(heatmaps, pafs, cfg: InferenceConfig,
         "peak_ys": peaks["ys"],
         "peak_scores": peaks["scores"],
     }
+
+
+def decode_impl_batch(heatmaps, pafs, cfg: InferenceConfig,
+                      valid_hw=None) -> dict[str, torch.Tensor]:
+    """Batched decode. ``heatmaps``: (B, H, W, 19) or a ScaleSpace of
+    (B, Hl, Wl, 19) maps; ``pafs``: (B, H, W, 38) or a ScaleSpace of
+    (B, Hl, Wl, 38) maps.
+
+    ``valid_hw`` (optional (B, 2) int) restricts peaks to each image's
+    top-left rectangle [0, vh) x [0, vw). Returns rows (B, max_people,
+    18) int32 global peak ids (part * max_peaks + slot), score, cnt,
+    valid per person, and the peak tables peak_xs/peak_ys/peak_scores
+    (B, 18, max_peaks) that resolve the ids.
+    """
+    flats, w = peak_scores_batch(heatmaps, cfg, valid_hw)
+    return decode_scores_batch(flats, w, pafs, cfg)
 
 
 def decode_impl(heatmap, paf, cfg: InferenceConfig) -> dict[str, torch.Tensor]:

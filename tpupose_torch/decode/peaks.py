@@ -82,14 +82,24 @@ def masked_scores(parts: torch.Tensor, smooth: torch.Tensor, thre1: float) -> to
     return scores.reshape(*parts.shape[:-3], h * w, c).transpose(-1, -2)
 
 
-def peak_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.Tensor]:
+def overflowed(flat: torch.Tensor, max_peaks: int) -> torch.Tensor:
+    """Whether any row of the (R, N) masked scores holds more than
+    ``max_peaks`` peaks: a 0-d bool tensor on their device (no sync)."""
+    return (torch.isfinite(flat).sum(dim=-1) > max_peaks).any()
+
+
+def peak_tables(flat: torch.Tensor, w: int, max_peaks: int,
+                overflow: bool | None = None) -> dict[str, torch.Tensor]:
     """(R, N) masked scores (-inf off-peak) -> (R, K) peak tables.
 
     Returns xs/ys int32, scores f32 (0 in empty slots) and valid bool.
-    The overflow decision is global over the R rows (one host sync).
+    The overflow decision is global over the R rows (one host sync), or
+    ``overflow`` when the caller decided it over a larger batch.
     """
     k = max_peaks
-    if bool((torch.isfinite(flat).sum(dim=-1) > k).any()):
+    if overflow is None:
+        overflow = bool(overflowed(flat, k))
+    if overflow:
         top, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
         top, idx = top[:, :k], idx[:, :k]
         ok = torch.isfinite(top)

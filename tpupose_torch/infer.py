@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from tpupose_torch.config import DEFAULT, PoseConfig
-from tpupose_torch.decode.api import decode_impl_batch, to_people
+from tpupose_torch.decode.api import decode_scores_batch, peak_scores_batch, to_people
 from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.models import OpenPose, weights as weights_lib
 from tpupose_torch.models.openpose import DTYPES
@@ -104,7 +104,10 @@ class PoseEstimator:
         return sizes, heats, pafs
 
     @torch.inference_mode()
-    def _run(self, images: np.ndarray, scales, valid_hw) -> dict[str, torch.Tensor]:
+    def _scores(self, images: np.ndarray, scales, valid_hw):
+        """The batched program up to the peak scores, enqueued without a
+        host sync: (masked scores (N, 18, H*W), map width, the PAF input of
+        the readout). ``_tables`` finishes it."""
         if self.cfg.inference.paf_readout == "fullres":
             heat_in, paf_in = self.maps_batch(images, scales)
         else:
@@ -113,7 +116,18 @@ class PoseEstimator:
             geoms = [s[:2] for s in sizes]
             heat_in = ScaleSpace(heats, geoms, (h, w))
             paf_in = ScaleSpace(pafs, geoms, (h, w))
-        return decode_impl_batch(heat_in, paf_in, self.cfg.inference, valid_hw)
+        flats, width = peak_scores_batch(heat_in, self.cfg.inference, valid_hw)
+        return flats, width, paf_in
+
+    @torch.inference_mode()
+    def _tables(self, scored, overflow: bool | None = None) -> dict[str, torch.Tensor]:
+        """The people tables of ``_scores``' output; ``overflow`` is the
+        peak-overflow decision of a larger batch (None: of this one)."""
+        flats, width, paf_in = scored
+        return decode_scores_batch(flats, width, paf_in, self.cfg.inference, overflow)
+
+    def _run(self, images: np.ndarray, scales, valid_hw) -> dict[str, torch.Tensor]:
+        return self._tables(self._scores(images, scales, valid_hw))
 
     # --- public API --------------------------------------------------------------
 

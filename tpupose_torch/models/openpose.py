@@ -23,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from tpupose_torch import topology
 from tpupose_torch.ops.block1 import block1
@@ -50,9 +52,12 @@ class Conv(nn.Module):
                                   generator=generator)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, pad_rows: bool = True) -> torch.Tensor:
+        """``pad_rows=False``: no zero rows above and below (the caller
+        supplies them, as a tile's halo does): H shrinks by the kernel
+        size less one."""
         pad = self.weight.shape[-1] // 2
-        y = F.conv2d(x.to(dtype), self.weight.to(dtype), padding=pad)
+        y = F.conv2d(x.to(dtype), self.weight.to(dtype), padding=(pad if pad_rows else 0, pad))
         return y + self.bias.to(dtype)[:, None, None]
 
 
@@ -86,15 +91,21 @@ class VGGBackbone(nn.Module):
     def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(getattr(self, name)(x, self.dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, w = x.shape[-2:]
-        if (self.pallas_block1 and self.dtype == torch.bfloat16
-                and h % 2 == 0 and w % 2 == 0):
+    def fuses_block1(self, h: int, w: int) -> bool:
+        """Whether block 1 of an (h, w) input goes through ``ops.block1``."""
+        return self.pallas_block1 and self.dtype == torch.bfloat16 and h % 2 == 0 and w % 2 == 0
+
+    def block1(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1_1 + ReLU + conv1_2 + ReLU + 2x2 pool of an NCHW input,
+        zero-padded at its own edges."""
+        if self.fuses_block1(*x.shape[-2:]):
             y = block1(x.permute(0, 2, 3, 1), _hwio(self.conv1_1), self.conv1_1.bias,
                        _hwio(self.conv1_2), self.conv1_2.bias)
-            x = y.permute(0, 3, 1, 2)
-        else:
-            x = F.max_pool2d(self._conv("conv1_2", self._conv("conv1_1", x)), 2)
+            return y.permute(0, 3, 1, 2)
+        return F.max_pool2d(self._conv("conv1_2", self._conv("conv1_1", x)), 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.block1(x)
         x = F.max_pool2d(self._conv("conv2_2", self._conv("conv2_1", x)), 2)
         for name in ("conv3_1", "conv3_2", "conv3_3", "conv3_4"):
             x = self._conv(name, x)
@@ -160,12 +171,20 @@ class OpenPose(nn.Module):
     ``forward`` takes a normalised (N, H, W, 3) image and returns the
     per-stage list of (paf, heat) in NHWC — the training contract; the
     inference path keeps the last pair.
+
+    ``remat`` (the reference model's field): while autograd records, each
+    stage branch runs under ``torch.utils.checkpoint`` and is recomputed
+    in the backward pass, so the 7x7 convs' activations of every stage are
+    not kept alive until then. The same numbers; without grad (inference,
+    ``no_grad``) it changes nothing.
     """
 
     def __init__(self, num_stages: int = 6, dtype: torch.dtype = torch.bfloat16,
-                 head_dtype: torch.dtype = torch.float32, pallas_block1: bool = False):
+                 head_dtype: torch.dtype = torch.float32, pallas_block1: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.num_stages = num_stages
+        self.remat = remat
         self.dtype = dtype
         self.vgg = VGGBackbone(dtype, pallas_block1)
         self.cpm = CPMFeature(dtype)
@@ -183,15 +202,29 @@ class OpenPose(nn.Module):
             if isinstance(m, Conv):
                 m.reset_parameters(generator)
 
+    def _branch(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        branch = getattr(self, name)
+        if not (self.remat and torch.is_grad_enabled()):
+            return branch(x)
+        # the parameters go in as arguments: the recomputation must see the
+        # tensors of this forward (those a ``functional_call`` swapped in),
+        # not whatever the module holds when the backward pass runs
+        names, tensors = zip(*branch.named_parameters())
+
+        def run(x, *tensors):
+            return functional_call(branch, dict(zip(names, tensors)), (x,))
+
+        return checkpoint(run, x, *tensors, use_reentrant=False)
+
     def forward(self, image: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
         feat = self.cpm(self.vgg(image.permute(0, 3, 1, 2)))
-        paf = self.stage1_L1(feat)
-        heat = self.stage1_L2(feat)
+        paf = self._branch("stage1_L1", feat)
+        heat = self._branch("stage1_L2", feat)
         outputs = [(paf, heat)]
         for t in range(2, self.num_stages + 1):
             x = torch.cat([paf.to(self.dtype), heat.to(self.dtype), feat], dim=1)
-            paf = getattr(self, f"stage{t}_L1")(x)
-            heat = getattr(self, f"stage{t}_L2")(x)
+            paf = self._branch(f"stage{t}_L1", x)
+            heat = self._branch(f"stage{t}_L2", x)
             outputs.append((paf, heat))
         return [(p.permute(0, 2, 3, 1), h.permute(0, 2, 3, 1)) for p, h in outputs]
 

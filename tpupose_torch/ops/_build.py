@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -112,10 +114,20 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return fn
 
-    def launch(self, *args) -> None:
-        """Enqueue the kernel; raise if the launch was refused."""
+    def launch(self, device: torch.device, *args) -> None:
+        """Enqueue the kernel on ``device``'s current stream, which the C
+        launcher takes after ``args``; raise if the launch was refused.
+
+        The launchers set shared-memory limits and read the SM count of the
+        current CUDA device, and a stream only takes launches of its own
+        device, so ``device`` is made the current device for the call: a
+        replica's or tile's tensors on another card than the current one
+        launch there."""
+        if not isinstance(device, torch.device) or device.type != "cuda":
+            raise ValueError(f"{self.name}: launch on {device!r}, not a CUDA device")
         fn = self.build()
-        code = fn(*args)
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if code != 0:
             msg = self._error_string(code).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({code})")

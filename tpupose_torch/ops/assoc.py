@@ -108,11 +108,10 @@ def assoc(ts, ta, tb, sa, sb, limits, k_slots: int, n_conn: int,
     }
     if b:
         KERNEL.launch(
-            f32[0].data_ptr(), i32[0].data_ptr(), i32[1].data_ptr(),
+            dev, f32[0].data_ptr(), i32[0].data_ptr(), i32[1].data_ptr(),
             f32[1].data_ptr(), f32[2].data_ptr(), i32[2].data_ptr(),
             _part_pairs(dev).data_ptr(), b, n_limbs, cap, k_slots, n_conn, p,
             out["rows"].data_ptr(), out["score"].data_ptr(), out["cnt"].data_ptr(),
             out["active"].data_ptr(), out["stamp"].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
         )
     return out

@@ -144,9 +144,8 @@ def block1(x, k1, b1, k2, b2):
     if out.numel() == 0:
         return out
     KERNEL.launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), *x.stride(),
-        w1.data_ptr(), bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), out.data_ptr(),
-        n, h, w, torch.cuda.current_stream(x.device).cuda_stream,
+        x.device, x.data_ptr(), int(x.dtype == torch.bfloat16), *x.stride(),
+        w1.data_ptr(), bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), out.data_ptr(), n, h, w,
     )
     return out
 
@@ -168,8 +167,9 @@ def wgmma_probe(pixels, w, shift: int, from_regs: bool = False):
     rows = w.to(torch.bfloat16).reshape(64, 2, 8).permute(1, 0, 2).contiguous()
     out = torch.empty((64, 64 if from_regs else 128), dtype=torch.float32, device=pixels.device)
     fn = KERNEL.entry("tp_block1_wgmma_probe", [_P, _P, _P, _I, _I, _I, _P])
-    code = fn(planes.data_ptr(), rows.data_ptr(), out.data_ptr(), n, shift,
-              int(from_regs), torch.cuda.current_stream(pixels.device).cuda_stream)
+    with torch.cuda.device(pixels.device):
+        code = fn(planes.data_ptr(), rows.data_ptr(), out.data_ptr(), n, shift,
+                  int(from_regs), torch.cuda.current_stream(pixels.device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"wgmma probe launch failed ({code})")
     return out

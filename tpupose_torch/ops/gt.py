@@ -199,5 +199,5 @@ def create_labels(joints: torch.Tensor, mask: torch.Tensor, label_size: int = 46
     p.limb_a, p.limb_b = _LIMB_A, _LIMB_B
     p.joints, p.mask, p.paf, p.heat = (jc.data_ptr(), mc.data_ptr(),
                                       paf.data_ptr(), heat.data_ptr())
-    KERNEL.launch(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+    KERNEL.launch(dev, ctypes.byref(p))
     return paf, heat

@@ -116,7 +116,7 @@ def peak_scores(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
     p.thre1 = thre1
     p.taps[: len(taps)] = [float(t) for t in taps]
     p.maps, p.out = x.data_ptr(), out.data_ptr()
-    KERNEL.launch(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+    KERNEL.launch(dev, ctypes.byref(p))
     return out
 
 

@@ -215,7 +215,7 @@ def pyramid_peak_scores(space: ScaleSpace, parts: int = 18, sigma: float = 3.0,
     out = torch.empty((b, parts, out_h * out_w), dtype=torch.float32, device=dev)
     if out.numel():
         p = _params(ScaleSpace(maps, space.geoms, space.out_hw), parts, float(sigma), thre1, out)
-        KERNEL.launch(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+        KERNEL.launch(dev, ctypes.byref(p))
     return out
 
 

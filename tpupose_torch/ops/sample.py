@@ -216,5 +216,5 @@ def sample_avg(space, iy: torch.Tensor, ix: torch.Tensor, chans) -> torch.Tensor
     tap_w, tap_i = _device_tap_table(space, dev)
     p.tap_w, p.tap_i = tap_w.data_ptr(), tap_i.data_ptr()
     if out.numel():
-        KERNEL.launch(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+        KERNEL.launch(dev, ctypes.byref(p))
     return out

@@ -36,7 +36,7 @@ loop may spend on one request. ``?draw=1`` needs cv2 for the overlay.
 
 Run: python -m tpupose_torch.serve --port 8080 [--weights model.h5]
      [--scales 1] [--max-batch 8 --batch-window-ms 5 --buckets default
-     --warmup] [--device cpu]
+     --warmup] [--dp N|auto] [--device cpu]
 """
 
 from __future__ import annotations
@@ -690,6 +690,10 @@ def main(argv=None) -> int:
                          "accepting traffic (requires --buckets): kernel builds, "
                          "cuDNN's algorithm choice and the allocator's growth "
                          "never land on a live request's deadline")
+    ap.add_argument("--dp", default=None, metavar="N|auto",
+                    help="split each device batch over N devices (data-parallel "
+                         "serving, parallel/inference.py; 'auto' = every visible "
+                         "device). Pair with --max-batch >= N so batches span them")
     ap.add_argument("--max-rss-mb", type=float, default=None,
                     help="recycle guard: when process RSS exceeds this, stop "
                          "accepting, drain in-flight requests and exit 3 so a "
@@ -703,7 +707,22 @@ def main(argv=None) -> int:
               "ladder the request shapes, hence the geometries to "
               "run, are unknown)", file=sys.stderr)
         return 2
+    if args.dp:  # validate before paying for the model build
+        from tpupose_torch.cli import _dp_devices
+        from tpupose_torch.parallel.inference import resolve_dp
+
+        try:
+            resolve_dp(args.dp, _dp_devices(args))
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     est = _estimator(args)
+    if args.dp:
+        from tpupose_torch.parallel.inference import wrap_dp
+
+        est, dp_n = wrap_dp(est, args.dp, _dp_devices(args))
+        if dp_n > 1:
+            print(f"data-parallel serving over {dp_n} devices", file=sys.stderr)
     if args.warmup:
         n = warmup_estimator(est, bks, max_batch=args.max_batch,
                              log=lambda m: print(m, file=sys.stderr))

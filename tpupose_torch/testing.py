@@ -9,13 +9,17 @@ bilinear resize: decoding them must give the two people.
 ``png_bytes`` encodes an image as a request body with ``zlib`` alone.
 ``coco_keypoint_set`` writes a COCO-format keypoint set (annotations and
 PNG images) from a seed: the input of ``prepare`` and ``eval``.
+``spawn_ranks`` runs a function in the processes of a fresh
+``torch.distributed`` group on this host (a local TCP rendezvous).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import socket
 import struct
+import time
 import zlib
 
 import numpy as np
@@ -45,6 +49,48 @@ def limit_threads() -> None:
     workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
     if workers > 1:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+def free_port() -> int:
+    """A TCP port on localhost that was free when asked."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, fn, world: int, address: str, args: tuple, out: str) -> None:
+    result = fn(rank, world, address, *args)
+    torch.save(result, os.path.join(out, f"{rank}.pt"))
+
+
+def spawn_ranks(fn, world: int, *args, timeout: float = 600.0) -> list:
+    """``fn(rank, world, address, *args)`` in ``world`` spawned processes,
+    ``address`` a free ``127.0.0.1:<port>`` for their rendezvous (e.g.
+    ``parallel.distributed.init_multihost(address, world, rank)``); their
+    results (picklable) in rank order. A rank that raises fails the call
+    with its traceback; past ``timeout`` seconds every rank is killed and
+    the call raises. ``fn`` is pickled by name: a module-level function."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    address = f"127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.start_processes(_rank_main, args=(fn, world, address, args, out), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"spawn_ranks: {world} ranks still running "
+                                       f"after {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(os.path.join(out, f"{r}.pt"), weights_only=False)
+                for r in range(world)]
 
 
 def person(cx: float, cy: float, size: float = 120.0) -> np.ndarray:

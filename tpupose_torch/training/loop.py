@@ -1,6 +1,6 @@
 """The training loop: steps, LR schedule, checkpoints, CSV/TB logging.
 
-Counterpart of ``tpupose/training/loop.py`` on one device: restore-latest,
+Counterpart of ``tpupose/training/loop.py``: restore-latest,
 iterate generator batches, log per-head losses, checkpoint periodically
 (``checkpoint.AsyncSaver``: the step loop never waits on the disk).
 Works identically for from-scratch training and frozen-VGG domain
@@ -12,6 +12,18 @@ run takes the batches the uninterrupted one would have taken.
 Each step's augmentation draws come from a generator seeded from
 (``seed``, the step's index), so a run resumed from a checkpoint repeats
 the uninterrupted run exactly.
+
+Data parallelism (``use_mesh=True``, the default, under an initialised
+``torch.distributed`` process group of W ranks, one per device, as
+``torchrun`` launches them; see ``parallel.distributed``): every rank is
+fed the same global batch of ``cfg.train.batch_size``, pads it to a
+multiple of W (``parallel.sharding.pad_batch``: padded rows carry weight
+0), draws the augmentation of the whole padded batch from the same
+step generator and keeps its own rows of both. The loss divisor stays
+the global batch size; one all-reduce sums gradients and losses, and
+every rank applies the same update. Only rank 0 writes checkpoints, the
+loss CSVs and TensorBoard. Without a group, or with ``use_mesh=False``,
+the step is the single-device one.
 """
 
 from __future__ import annotations
@@ -23,11 +35,15 @@ from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpupose_torch.config import PoseConfig
 from tpupose_torch.data.pipeline import is_checkpointable
+from tpupose_torch.gt import augment as gt_augment
 from tpupose_torch.models import OpenPose
 from tpupose_torch.models.openpose import DTYPES
+from tpupose_torch.parallel.distributed import is_primary
+from tpupose_torch.parallel.sharding import pad_batch
 from tpupose_torch.training import checkpoint as ckpt_lib
 from tpupose_torch.training.train import create_state, make_eval_step, make_train_step
 
@@ -89,6 +105,22 @@ def _host(losses: Mapping[str, torch.Tensor]) -> dict[str, float]:
     return {k: float(v) for k, v in losses.items()}
 
 
+def _rank_rows(batch: Mapping[str, Any], rank: int, world: int) -> dict[str, Any]:
+    """This rank's rows of a batch padded to a multiple of ``world``."""
+    n = next(iter(batch.values())).shape[0] // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
+class _NoLog:
+    """The loggers of a rank other than 0."""
+
+    def log(self, step: int, losses: dict[str, float]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def train(
     cfg: PoseConfig,
     batches: Iterable[dict[str, np.ndarray]],
@@ -96,6 +128,7 @@ def train(
     workdir: str = "runs/train",
     max_steps: int | None = None,
     seed: int = 0,
+    use_mesh: bool = True,
     on_step: Callable[[int, dict[str, float]], None] | None = None,
     val_batches: Callable[[], Iterable[dict[str, np.ndarray]]] | None = None,
     val_every: int | None = None,
@@ -105,7 +138,8 @@ def train(
     and run statistics. ``params``: a state dict to start from
     (``models.weights.from_flax`` converts a flax tree); None builds the
     seeded default init. The latest checkpoint under ``workdir``, if any,
-    takes precedence."""
+    takes precedence. ``use_mesh``: data-parallel over the initialised
+    process group, if there is one (module docstring)."""
     model = OpenPose(num_stages=cfg.model.num_stages, dtype=DTYPES[cfg.model.compute_dtype])
     if params is None:
         model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -122,16 +156,24 @@ def train(
     if restored is not None:
         tree = restored
 
-    step_fn = make_train_step(cfg, model, tx, loss_denom=cfg.train.batch_size)
-    logger = CSVLogger(os.path.join(workdir, "training.csv"))
-    tb = TBLogger(os.path.join(workdir, "tb"))
+    # the process group's ranks, each one entry of the data axis
+    group = use_mesh and dist.is_available() and dist.is_initialized()
+    world, rank = (dist.get_world_size(), dist.get_rank()) if group else (1, 0)
+    all_reduce = dist.all_reduce if group else None
+    primary = is_primary()
+
+    step_fn = make_train_step(cfg, model, tx, loss_denom=cfg.train.batch_size,
+                              all_reduce=all_reduce)
+    logger = CSVLogger(os.path.join(workdir, "training.csv")) if primary else _NoLog()
+    tb = TBLogger(os.path.join(workdir, "tb")) if primary else _NoLog()
     saver = ckpt_lib.AsyncSaver(ckpt_dir)
 
     val_logger = None
     eval_fns: dict[int, Any] = {}
     if val_batches is not None:
         val_every = val_every or cfg.train.checkpoint_every
-        val_logger = CSVLogger(os.path.join(workdir, "validation.csv"))
+        val_logger = (CSVLogger(os.path.join(workdir, "validation.csv")) if primary
+                      else _NoLog())
 
     def run_validation(step_idx: int) -> None:
         if val_batches is None:
@@ -142,7 +184,10 @@ def train(
             # the eucl-loss divisor is each val batch's own sample count
             n_real = next(iter(vb.values())).shape[0]
             if n_real not in eval_fns:
-                eval_fns[n_real] = make_eval_step(cfg, model, loss_denom=n_real)
+                eval_fns[n_real] = make_eval_step(cfg, model, loss_denom=n_real,
+                                                  all_reduce=all_reduce)
+            if group:
+                vb = _rank_rows(pad_batch(vb, world)[0], rank, world)
             # per-sample weighting (evaluate_generator semantics)
             for k, v in _host(eval_fns[n_real](tree["params"], vb)).items():
                 totals[k] = totals.get(k, 0.0) + v * n_real
@@ -175,7 +220,14 @@ def train(
                 f"batch_size={cfg.train.batch_size} (the loss divisor is "
                 "pinned to the configured size)"
             )
-        tree, losses = step_fn(tree, step_generator(seed, step_idx), batch)
+        rng = step_generator(seed, step_idx)
+        if group:
+            # the draws of the whole padded batch, sample i's depending only
+            # on (seed, step, i): this rank keeps its rows of both
+            batch, _ = pad_batch(batch, world)
+            rng = gt_augment.batch_params(rng, cfg.augment, next(iter(batch.values())).shape[0])
+            batch, rng = _rank_rows(batch, rank, world), _rank_rows(rng, rank, world)
+        tree, losses = step_fn(tree, rng, batch)
 
         step_idx += 1
         if step_idx % cfg.train.log_every == 0 or step_idx == start + 1:
@@ -184,14 +236,14 @@ def train(
             tb.log(step_idx, logged)
             if on_step is not None:
                 on_step(step_idx, logged)
-        if step_idx % cfg.train.checkpoint_every == 0:
+        if primary and step_idx % cfg.train.checkpoint_every == 0:
             saver.save(tree, step=step_idx, data_iter=ckpt_feed)
         if val_batches is not None and step_idx % val_every == 0:
             run_validation(step_idx)
 
     # the FINAL step's losses, whatever the logging cadence was
     last_losses = _host(losses) if losses is not None else {}
-    if saver.last_saved != tree["step"]:
+    if primary and saver.last_saved != tree["step"]:
         saver.save(tree, step=tree["step"], data_iter=ckpt_feed)
     saver.close()  # block until every pending write is durable
     if val_batches is not None:

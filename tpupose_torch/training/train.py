@@ -20,6 +20,12 @@ in channels_last), ``step`` is a host int. A step updates the tree in
 place and returns it. The model runs with ``pallas_block1`` off, as the
 reference trainer's does: block 1 has no backward kernel, so its two
 convs run through cuDNN.
+
+Data parallelism (``all_reduce``): each process of a group steps on its
+rows of the global batch with the loss divisor of the global batch, and
+``all_reduce`` sums the gradients and the losses of every process in one
+call, so that each applies the same update as one process would on the
+whole batch (``training.loop.train(use_mesh=True)``).
 """
 
 from __future__ import annotations
@@ -104,7 +110,22 @@ def _no_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _descend(model: OpenPose, tx: opt_lib.MultiSGD, tree: dict, inputs, denom) -> dict:
+def _summed(all_reduce, grads: list[torch.Tensor], losses: dict[str, torch.Tensor]):
+    """Gradients and losses summed over the group by one ``all_reduce`` of
+    one flat f32 buffer."""
+    keys = list(losses)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [torch.stack([losses[k] for k in keys]).to(torch.float32)])
+    all_reduce(flat)
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view(g.shape))
+        off += g.numel()
+    return out, dict(zip(keys, flat[off:]))
+
+
+def _descend(model: OpenPose, tx: opt_lib.MultiSGD, tree: dict, inputs, denom,
+             all_reduce=None) -> dict:
     """Forward, backward and update on prepared inputs; the losses."""
     images_norm, paf_gt, heat_gt, label_mask = inputs
     params = tree["params"]
@@ -113,20 +134,25 @@ def _descend(model: OpenPose, tx: opt_lib.MultiSGD, tree: dict, inputs, denom) -
     losses = loss_lib.stagewise_losses(outputs, paf_gt, heat_gt, label_mask, denom)
     names = list(leaves)
     grads = torch.autograd.grad(losses["total"], [leaves[n] for n in names])
+    losses = {k: v.detach() for k, v in losses.items()}
+    if all_reduce is not None:
+        grads, losses = _summed(all_reduce, grads, losses)
     tx.update(dict(zip(names, grads)), tree["opt_state"], params)
     tree["step"] += 1
-    return {k: v.detach() for k, v in losses.items()}
+    return losses
 
 
 def make_train_step(cfg: PoseConfig, model: OpenPose, tx: opt_lib.MultiSGD,
-                    loss_denom: int | None = None):
+                    loss_denom: int | None = None, all_reduce=None):
     """Returns step(state_tree, rng, batch) -> (state_tree, losses).
 
     ``rng`` is a ``torch.Generator`` for the step's augmentation draws, or
     the draws themselves (see ``gt.augment.augment_batch``). ``losses``
     are 0-d tensors on the training device; reading them is the only
     host synchronisation. ``loss_denom`` fixes the eucl-loss batch divisor
-    to the *real* sample count when batches are padded.
+    to the *real* sample count when batches are padded. ``all_reduce``
+    (e.g. ``torch.distributed.all_reduce``, in place, SUM) sums gradients
+    and losses over a process group before the update.
     """
     _no_tf32()
 
@@ -134,14 +160,16 @@ def make_train_step(cfg: PoseConfig, model: OpenPose, tx: opt_lib.MultiSGD,
         batch = _to_device(batch, _device_of(state_tree["params"]))
         with torch.no_grad():
             inputs = _targets(cfg, rng, batch, training=True)
-        return state_tree, _descend(model, tx, state_tree, inputs, loss_denom)
+        return state_tree, _descend(model, tx, state_tree, inputs, loss_denom, all_reduce)
 
     return step
 
 
-def make_eval_step(cfg: PoseConfig, model: OpenPose, loss_denom: int | None = None):
+def make_eval_step(cfg: PoseConfig, model: OpenPose, loss_denom: int | None = None,
+                   all_reduce=None):
     """step(params, batch) -> losses: forward-only loss on a raw batch with
-    deterministic (identity) augmentation — the validation path."""
+    deterministic (identity) augmentation — the validation path.
+    ``all_reduce`` sums the losses over a process group."""
     _no_tf32()
 
     @torch.no_grad()
@@ -149,7 +177,13 @@ def make_eval_step(cfg: PoseConfig, model: OpenPose, loss_denom: int | None = No
         batch = _to_device(batch, _device_of(params))
         images_norm, paf_gt, heat_gt, label_mask = _targets(cfg, None, batch, training=False)
         outputs = functional_call(model, dict(params), (images_norm,))
-        return loss_lib.stagewise_losses(outputs, paf_gt, heat_gt, label_mask, loss_denom)
+        losses = loss_lib.stagewise_losses(outputs, paf_gt, heat_gt, label_mask, loss_denom)
+        if all_reduce is not None:
+            keys = list(losses)
+            flat = torch.stack([losses[k] for k in keys]).to(torch.float32)
+            all_reduce(flat)
+            losses = dict(zip(keys, flat))
+        return losses
 
     return step
 
