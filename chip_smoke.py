@@ -12,7 +12,11 @@ outputs of pyramid_peaks, peaks, assoc (on random and on crowded tables)
 and gt on the same saved inputs must equal the parent's bit for bit.
 assoc and gt, redesigned in this checkout, must be faster than the
 parent's; pyramid_peaks and peaks, where their source differs from the
-parent's, at most 5 % slower; block1 and sample are shown.
+parent's, at most 5 % slower; block1 and sample are shown. Last, after
+phase k, the estimator of each checkout runs phase e's 4-scale batch of 8
+and batch-1 latency in a process of its own, in turns (parent, change,
+change, parent): the change's images/s at least 0.95 and its latency at
+most 1.2 times the parent's.
 
 Phases, one printed line each (a phase that fails raises, and the script
 exits non-zero):
@@ -179,7 +183,24 @@ exits non-zero):
      request: block1 x4, pyramid_peaks, sample and assoc x1), --dp 2 exits 2
      with the reference's message. Its seconds are printed.
 
-The phase e, f, h, i and j lines are printed once more at the end; the last three
+  k. the deployment path (after phase j, on phase d's estimator's weights,
+     its output convolutions scaled): save_bundle of the scale-space
+     estimator for the 368x368 and 496x656 buckets at max batch 8 (8
+     programs) and of a full-res estimator for 368x368 at max batch 2
+     (torch.export on the card; seconds and bytes of each program beside
+     weights.npz's, every program under 5 % of it); a fresh process loads
+     both bundles and runs a 368x368 batch of 8, 3 images (padded to the
+     batch-4 program), a 496x656 batch of 2 and a full-res batch of 2: the
+     people bit-equal to the live estimator's at the same device batch,
+     launches inside the loaded programs block1 4, pyramid_peaks, sample
+     and assoc 1 each per scale-space batch, block1 4, peaks and assoc 1
+     for the full-res one; serve(bundle, max batch 8, its ladder) answers 8
+     of phase h's PNGs, each reply held to the live estimator at its device
+     batch (phase h's rule); tpupose_torch.models and tpupose_torch.infer
+     never imported there; images/s of the bundle beside the live
+     estimator's, 4 scales, batch 8, in turns (live, bundle, bundle, live).
+
+The phase e, f, h, i, j and k lines are printed once more at the end; the last three
 lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero before
@@ -188,6 +209,7 @@ printing any result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -430,7 +452,8 @@ def _batch_witness(torch, np, est, image) -> dict:
         for n in (1, 2, 4, 8):
             seen.clear()
             with torch.inference_mode():
-                _, heats, pafs = est._low_res(np.repeat(image[None], n, axis=0), None)
+                images = est._upload(np.repeat(image[None], n, axis=0), None)[0]
+                _, heats, pafs = est._low_res(est._net(None), images, None)
             now = (list(seen), [t[:1].float() for t in heats], [t[:1].float() for t in pafs])
             people = len(BucketedRunner(est, batch_size=n).process_many([image])[0])
             if ref is None:
@@ -450,10 +473,11 @@ def _batch_witness(torch, np, est, image) -> dict:
     return out
 
 
-def _serving_phase(torch, np, est, card: str, rng) -> dict:
+def _serving_phase(torch, np, est, card: str, rng) -> tuple[dict, list, list]:
     """Phase h: the serving path on the card. ``est`` is the seeded
     full-width scale-space estimator (its output convolutions scaled as
-    phase d scales them). Returns the launches during the requests."""
+    phase d scales them). Returns the launches during the requests, and
+    the first 8 request images and their PNG bodies (for phase k)."""
     import concurrent.futures
     import dataclasses
     import hashlib
@@ -654,7 +678,7 @@ def _serving_phase(torch, np, est, card: str, rng) -> dict:
     _same_people(reply["people"], served.process(image)["people"], "the serial server")
     _say("h", f"serial server (max batch 1, no buckets): one 368x368 request, "
               f"{len(reply['people'])} people, equal to process(image): pass")
-    return counts
+    return counts, images[:8], bodies[:8]
 
 
 def _cli_json(cli, argv: list) -> dict:
@@ -1448,6 +1472,297 @@ def _multidevice_phase(torch, np, card: str, data_dir: str) -> dict:
     return counts
 
 
+def _pipelined_ips(torch, est, batch, n_warm: int, n_timed: int) -> float:
+    """Images/s of ``est`` on copies of ``batch`` with two batches in flight
+    (``process_batch_async``, then ``_finish`` of the oldest): ``stream``'s
+    depth 2, through the calls a deployed bundle has too."""
+    def run(n):
+        pending, done = [], 0
+        for _ in range(n):
+            pending.append(est.process_batch_async(batch))
+            if len(pending) > 2:
+                done += len(est._finish(*pending.pop(0)))
+        while pending:
+            done += len(est._finish(*pending.pop(0)))
+        return done
+
+    run(n_warm)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = run(n_timed)
+    return done / (time.perf_counter() - t)
+
+
+def _e2e_times(torch, np) -> dict:
+    """Phase e's 4-scale images/s (batch 8, ``stream`` depth 2, 2 warm-up
+    and 8 timed batches) and batch-1 latency p50 (15 samples) of the
+    checkout first on ``sys.path``: what ``--parent`` compares in turns.
+    Then, its output convolutions scaled as phase d scales them, the sha256
+    of every table of one 4-scale batch of 8 and its number of people."""
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.infer import PoseEstimator
+
+    est = PoseEstimator(DEFAULT, seed=0, device="cuda")
+    imgs8 = np.random.default_rng(0).integers(0, 256, (8, 368, 368, 3)).astype(np.uint8)
+    for _ in est.stream([imgs8] * 2):
+        pass
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = sum(len(r) for r in est.stream([imgs8] * 8))
+    ips = done / (time.perf_counter() - t)
+    est.process_batch(imgs8[:1])
+    samples = []
+    for _ in range(15):
+        t = time.perf_counter()
+        est.process_batch(imgs8[:1])
+        samples.append((time.perf_counter() - t) * 1e3)
+    _scale_heads(torch, est, imgs8[0])
+    n, tables = est.process_batch_async(imgs8)
+    digest = hashlib.sha256()
+    for key in sorted(tables):
+        digest.update(tables[key].cpu().numpy().tobytes())
+    return {"ips4": ips, "latency_ms": sorted(samples)[len(samples) // 2],
+            "tables_sha256": digest.hexdigest(), "people": sum(map(len, est._finish(n, tables)))}
+
+
+def _e2e_against(parent: str, card: str) -> None:
+    """Phase e's estimator end to end beside the parent's (``--parent``),
+    each turn in a process of its own (parent, change, change, parent): the
+    change's 4-scale images/s at least 0.95 and its batch-1 latency at most
+    1.2 times the parent's, and its tables of one batch bit-equal to the
+    parent's. Run last, so that a miss loses no other phase."""
+    e2e = [_e2e_of(parent), _e2e_of(ROOT), _e2e_of(ROOT), _e2e_of(parent)]
+    was = {key: (e2e[0][key] + e2e[3][key]) / 2 for key in ("ips4", "latency_ms")}
+    now = {key: (e2e[1][key] + e2e[2][key]) / 2 for key in ("ips4", "latency_ms")}
+    _say("e", "the estimator beside the parent's, in turns (parent, change, change, parent; "
+              "a process each): 4 scales, batch 8 "
+              + " / ".join(f"{t['ips4']:.2f}" for t in e2e)
+              + " images/s, batch-1 latency p50 "
+              + " / ".join(f"{t['latency_ms']:.2f}" for t in e2e)
+              + f" ms; change / parent: images/s {now['ips4'] / was['ips4']:.4f} (bound 0.95), "
+              f"latency {now['latency_ms'] / was['latency_ms']:.4f} (bound 1.20); the tables of "
+              f"one 4-scale batch of 8 ({e2e[0]['people']} people) bit-equal in all four turns: "
+              f"{len({t['tables_sha256'] for t in e2e}) == 1} ({card})")
+    if (now["ips4"] < 0.95 * was["ips4"] or now["latency_ms"] > 1.2 * was["latency_ms"]
+            or len({t["tables_sha256"] for t in e2e}) != 1 or not e2e[0]["people"]):
+        raise AssertionError(f"the estimator against the parent's: {e2e}")
+
+
+def _e2e_of(root: str) -> dict:
+    """``_e2e_times`` of the checkout under ``root``, in a process of its own."""
+    done = subprocess.run([sys.executable, os.path.abspath(__file__), "--e2e-times-of",
+                           os.path.abspath(root)], capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise RuntimeError(f"timing the estimator of {root} failed:\n{done.stderr[-2000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+_DEPLOY_BATCHES = ("368x368 n=8", "368x368 n=3 (padded to 4)", "496x656 n=2",
+                   "full-res 368x368 n=2")
+
+
+def _deployed_child(bundle: str, full_bundle: str, folder: str) -> int:
+    """Phase k's fresh process: load both bundles on the card, run each
+    batch of ``folder``/inputs.npz through them (launch counts per batch),
+    serve the PNG bodies of ``folder`` from the scale-space bundle (each
+    device batch recorded by the digests of its canvases), time it twice,
+    and write what it saw to ``folder``/child.json. It imports neither the
+    model's code nor the live estimator."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tpupose_torch import ops
+    from tpupose_torch.deploy import load_bundle
+    from tpupose_torch.serve import serve
+
+    t0 = time.perf_counter()
+    dep = load_bundle(bundle)
+    dep_full = load_bundle(full_bundle)
+    out = {"load_s": time.perf_counter() - t0, "batches": {}}
+    with np.load(os.path.join(folder, "inputs.npz")) as inputs:
+        for name, key, runner in zip(_DEPLOY_BATCHES, ("b8", "b3", "wide", "full2"),
+                                     (dep, dep, dep, dep_full)):
+            ops.reset_launch_counts()
+            people = runner.process_batch(inputs[key])
+            torch.cuda.synchronize()
+            out["batches"][name] = {"people": people, "launches": ops.launch_counts()}
+        b8 = inputs["b8"]
+
+    class Recorded:
+        pretrained = dep.pretrained
+
+        def __init__(self):
+            self.batches = []
+
+        def process_batch(self, images, scales=None, valid_hw=None):
+            self.batches.append([hashlib.sha1(c.tobytes()).hexdigest() for c in images])
+            return dep.process_batch(images, scales=scales, valid_hw=valid_hw)
+
+    bodies = []
+    for i in range(8):
+        with open(os.path.join(folder, f"body{i}.png"), "rb") as f:
+            bodies.append(f.read())
+    recorded = Recorded()
+    server = serve(recorded, port=0, max_batch=8, batch_window_ms=5, buckets=dep.buckets)
+    try:
+        ops.reset_launch_counts()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            replies = list(pool.map(lambda body: _post(server, body), bodies))
+        torch.cuda.synchronize()
+        out["serve_launches"] = ops.launch_counts()
+    finally:
+        server.shutdown()
+        server.batcher.close()
+    out["replies"] = replies
+    out["device_batches"] = recorded.batches
+    out["bundle_ips"] = [_pipelined_ips(torch, dep, b8, 2, 8) for _ in range(2)]
+    out["imported"] = sorted(m for m in ("tpupose_torch.models", "tpupose_torch.models.openpose",
+                                         "tpupose_torch.infer") if m in sys.modules)
+    with open(os.path.join(folder, "child.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _deploy_phase(torch, np, params, card: str, images: list, bodies: list) -> dict:
+    """Phase k: the deployment path on the card. ``params`` are phase d's
+    seeded estimator's weights (its output convolutions scaled), ``images``
+    and ``bodies`` 8 of phase h's request images and their PNGs. Returns
+    the launches inside the loaded programs (the child's)."""
+    import dataclasses
+    import tempfile
+    import zipfile
+
+    from tpupose_torch import ops
+    from tpupose_torch.buckets import BucketedRunner, choose_bucket, to_bucket
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.deploy import save_bundle
+    from tpupose_torch.infer import PoseEstimator
+
+    torch.backends.cudnn.deterministic = False      # a serving process's defaults
+    torch.backends.cudnn.benchmark = False
+    t_phase = time.perf_counter()
+    est = PoseEstimator(DEFAULT, params=params, device="cuda")
+    full_cfg = dataclasses.replace(
+        DEFAULT, inference=dataclasses.replace(DEFAULT.inference, paf_readout="fullres"))
+    est_full = PoseEstimator(full_cfg, params=params, device="cuda")
+    rng = np.random.default_rng(11)
+    inputs = {"b8": rng.integers(0, 256, (8, 368, 368, 3)).astype(np.uint8),
+              "b3": rng.integers(0, 256, (3, 368, 368, 3)).astype(np.uint8),
+              "wide": rng.integers(0, 256, (2, 496, 656, 3)).astype(np.uint8),
+              "full2": rng.integers(0, 256, (2, 368, 368, 3)).astype(np.uint8)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as tmp:
+        bundle, full_bundle = os.path.join(tmp, "model.tppx"), os.path.join(tmp, "full.tppx")
+        exported = []
+        manifest = save_bundle(bundle, est, [(368, 368), (496, 656)], max_batch=8,
+                               log=exported.append)
+        full_manifest = save_bundle(full_bundle, est_full, [(368, 368)], max_batch=2,
+                                    log=exported.append)
+        sizes = {}
+        for path in (bundle, full_bundle):
+            with zipfile.ZipFile(path) as zf:
+                sizes[path] = {i.filename: i.file_size for i in zf.infolist()}
+        w_bytes = sizes[bundle]["weights.npz"]
+        p_bytes = {f"{os.path.basename(path)}:{name}": size for path in sizes
+                   for name, size in sizes[path].items() if name.startswith("programs/")}
+        if len(manifest["programs"]) != 8 or max(p_bytes.values()) >= 0.05 * w_bytes:
+            raise AssertionError(f"bundle: {len(manifest['programs'])} programs, program bytes "
+                                 f"{p_bytes} against weights.npz {w_bytes}")
+        _say("k", f"exported {len(manifest['programs'])} scale-space programs (368x368 and "
+                  f"496x656, batch 1/2/4/8) and {len(full_manifest['programs'])} full-res "
+                  f"(368x368, batch 1/2) on the card with torch {torch.__version__}: "
+                  + "; ".join(exported)
+                  + f"; weights.npz {w_bytes} bytes, the largest program "
+                  f"{max(p_bytes.values())} ({max(p_bytes.values()) / w_bytes:.4f} of it)")
+        np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
+        for i, body in enumerate(bodies):
+            with open(os.path.join(tmp, f"body{i}.png"), "wb") as f:
+                f.write(body)
+        # the bundle's images/s in turns with the live estimator's: live here,
+        # the bundle twice in the child, live again
+        live_ips = [_pipelined_ips(torch, est, inputs["b8"], 2, 8)]
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--deployed-child",
+                               bundle, full_bundle, tmp], capture_output=True, text=True,
+                              timeout=900)
+        child_s = time.perf_counter() - t0
+        if done.returncode != 0:
+            raise RuntimeError(f"the bundle's process failed:\n{done.stderr[-3000:]}")
+        live_ips.append(_pipelined_ips(torch, est, inputs["b8"], 2, 8))
+        with open(os.path.join(tmp, "child.json")) as f:
+            child = json.load(f)
+    if child["imported"]:
+        raise AssertionError(f"the bundle's process imported {child['imported']}")
+
+    # each batch's people bit-equal to the live estimator's at the same device batch
+    padded = np.concatenate([inputs["b3"], inputs["b3"][-1:]])
+    live = {_DEPLOY_BATCHES[0]: est.process_batch(inputs["b8"]),
+            _DEPLOY_BATCHES[1]: est.process_batch(padded)[:3],
+            _DEPLOY_BATCHES[2]: est.process_batch(inputs["wide"]),
+            _DEPLOY_BATCHES[3]: est_full.process_batch(inputs["full2"])}
+    want_launches = {"block1": 4, "pyramid_peaks": 1, "sample": 1, "assoc": 1, "gt": 0,
+                     "peaks": 0}
+    want_full = {**want_launches, "pyramid_peaks": 0, "sample": 0, "peaks": 1}
+    counts = dict.fromkeys(want_launches, 0)
+    for name in _DEPLOY_BATCHES:
+        got = child["batches"][name]
+        want = json.loads(json.dumps(live[name]))
+        if got["people"] != want or not sum(map(len, want)):
+            raise AssertionError(f"bundle, {name}: people differ from the live estimator's "
+                                 f"({sum(map(len, got['people']))} against "
+                                 f"{sum(map(len, want))})")
+        expected = want_full if name.startswith("full-res") else want_launches
+        if got["launches"] != expected:
+            raise AssertionError(f"bundle, {name}: launches {got['launches']}, want {expected}")
+        counts = {k: counts[k] + got["launches"][k] for k in counts}
+    _say("k", f"a fresh process loaded both bundles in {child['load_s']:.1f} s without "
+              "tpupose_torch.models or tpupose_torch.infer; people bit-equal to the live "
+              "estimator at the same device batch, launches inside the loaded programs: "
+              + "; ".join(f"{name}: {sum(map(len, child['batches'][name]['people']))} people, "
+                          f"{child['batches'][name]['launches']}" for name in _DEPLOY_BATCHES)
+              + ": pass")
+
+    # the served requests, each held to the live estimator at its device batch
+    request_of = {}
+    runner_buckets = tuple(tuple(b) for b in manifest["buckets"])
+    for i, img in enumerate(images):
+        canvas = to_bucket(img, *choose_bucket(img.shape[0], img.shape[1], runner_buckets))[0]
+        request_of[hashlib.sha1(canvas.tobytes()).hexdigest()] = i
+    if [status for status, _ in child["replies"]] != [200] * len(images):
+        raise AssertionError(f"served statuses {[s for s, _ in child['replies']]}")
+    answered, exact, per_batch = set(), 0, []
+    for digests in child["device_batches"]:
+        order = [request_of[d] for i, d in enumerate(digests) if d not in digests[:i]]
+        want = BucketedRunner(est, buckets=runner_buckets, batch_size=len(digests)).process_many(
+            [images[i] for i in order])
+        for i, people in zip(order, want):
+            got = child["replies"][i][1]["people"]
+            _same_people(got, people, f"served request {i}")
+            exact += got == json.loads(json.dumps(people))
+            answered.add(i)
+        per_batch.append((len(digests), len(order)))
+    if answered != set(range(len(images))):
+        raise AssertionError(f"served requests in no recorded batch: {answered}")
+    serve_counts = child["serve_launches"]
+    if min(serve_counts[k] for k in ("block1", "pyramid_peaks", "sample", "assoc")) < 1 \
+            or serve_counts["gt"] or serve_counts["peaks"]:
+        raise AssertionError(f"launches while serving the bundle: {serve_counts}")
+    counts = {k: counts[k] + serve_counts[k] for k in counts}
+    _say("k", f"serve(bundle, max batch 8, its ladder): {len(images)} of phase h's PNGs from 8 "
+              f"threads, device batches (size, requests) {per_batch}, each reply equal to the "
+              f"live estimator's people at its device batch ({exact} of {len(images)} bit for "
+              f"bit); launches {serve_counts}: pass")
+    _say("k", f"4 scales, batch 8, two batches in flight, in turns (live, bundle, bundle, "
+              f"live): live {live_ips[0]:.2f} / {live_ips[1]:.2f} images/s, bundle "
+              f"{child['bundle_ips'][0]:.2f} / {child['bundle_ips'][1]:.2f} (no bound); the "
+              f"bundle's process {child_s:.1f} s; phase k {time.perf_counter() - t_phase:.1f} s "
+              f"({card})")
+    del est, est_full
+    return counts
+
+
 def main(parent: str | None = None) -> int:
     import dataclasses
     import gc
@@ -2227,7 +2542,7 @@ def main(parent: str | None = None) -> int:
     # --- h. the serving path ------------------------------------------------------
     del est_full
     gc.collect()
-    counts_serve = _serving_phase(torch, np, est, card, rng)
+    counts_serve, k_images, k_bodies = _serving_phase(torch, np, est, card, rng)
 
     # --- i. the data path: prepare, eval (on phase d's estimator's weights) -------
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_data_")
@@ -2239,6 +2554,10 @@ def main(parent: str | None = None) -> int:
         shutil.rmtree(data_dir, ignore_errors=True)
         raise
 
+    # phase k rebuilds this estimator from its weights after phase j
+    from tpupose_torch.models import weights as weights_lib
+
+    k_params = weights_lib.to_flax(est.model.state_dict())
     # the training phases start as in a process of their own: no estimator,
     # no cached block of the inference paths
     del est
@@ -2481,9 +2800,19 @@ def main(parent: str | None = None) -> int:
 
         shutil.rmtree(data_dir, ignore_errors=True)
 
+    # --- k. the deployment path, on phase d's estimator's weights ------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_deploy = _deploy_phase(torch, np, k_params, card, k_images, k_bodies)
+    if parent is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _e2e_against(parent, card)
+
     print("the timings and the training path once more, for a reader of the last lines:",
           flush=True)
-    for line in [line for line in _SAID if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]")]:
+    for line in [line for line in _SAID
+                 if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]", "[k]")]:
         print(line, flush=True)
     kernels = []
     for kern in ops.KERNELS:
@@ -2492,7 +2821,7 @@ def main(parent: str | None = None) -> int:
                         "launches": (counts_infer[kern.name] + counts_train[kern.name]
                                      + counts_full[kern.name] + counts_serve[kern.name]
                                      + counts_eval[kern.name] + counts_data_train[kern.name]
-                                     + counts_multi[kern.name]),
+                                     + counts_multi[kern.name] + counts_deploy[kern.name]),
                         **record[kern.name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -2511,7 +2840,24 @@ def _cli() -> int:
     ap.add_argument("--kernel-times-of", nargs=2, metavar=("DIR", "DATA"),
                     help="print the redesigned kernels' times of the checkout under DIR as JSON "
                     "(what --parent runs)")
+    ap.add_argument("--e2e-times-of", metavar="DIR",
+                    help="print phase e's 4-scale images/s and batch-1 latency of the checkout "
+                    "under DIR as JSON (what --parent runs)")
+    ap.add_argument("--deployed-child", nargs=3, metavar=("BUNDLE", "FULL_BUNDLE", "DIR"),
+                    help="phase k's fresh process (what phase k runs)")
     args = ap.parse_args()
+    if args.deployed_child:
+        return _deployed_child(*args.deployed_child)
+    if args.e2e_times_of:
+        import numpy as np
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
+            return 1
+        sys.path.insert(0, args.e2e_times_of)
+        print(json.dumps(_e2e_times(torch, np)), flush=True)
+        return 0
     if args.kernel_times_of:
         import numpy as np
         import torch

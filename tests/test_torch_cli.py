@@ -102,12 +102,13 @@ def _people(stdout: str) -> list:
 
 def test_help_lists_exactly_the_four_commands(capsys):
     """The commands whose modules the port holds: the four of the serving
-    path and, since the data path, prepare, train, finetune and eval."""
+    path, since the data path prepare, train, finetune and eval, and since
+    the deployment slice export-program."""
     rc, out, _ = _run(tcli, ["--help"], capsys)
     assert rc == 0
     usage = out[out.index("{"):out.index("}") + 1]
     assert usage == ("{demo-image,demo-video,prepare,train,finetune,eval,convert-weights,"
-                     "export-weights}")
+                     "export-weights,export-program}")
 
 
 def test_demo_image_prints_the_reference_cli_people(files, f32_defaults, monkeypatch, capsys,

@@ -626,6 +626,34 @@ def test_pth_loaded_estimator_is_bit_equal_to_the_params_built_one(cuda, tmp_pat
     assert sum(len(p) for p in PoseEstimator._finish(2, got)) > 0
 
 
+def test_bundle_exported_on_the_card_equals_the_live_estimator(cuda, tmp_path):
+    """A bundle of the 2-stage estimator (one 368x368 program at batch 2)
+    exported and loaded on the card: its tables equal the live estimator's
+    at the same batch, and the four scale-space kernels launch inside the
+    loaded program."""
+    from tpupose_torch import ops
+    from tpupose_torch.deploy import load_bundle, save_bundle
+
+    _, est = _two_stage_estimator()
+    path = str(tmp_path / "card.tppx")
+    manifest = save_bundle(path, est, [(368, 368)], max_batch=2)
+    assert manifest["device_type"] == "cuda" and len(manifest["programs"]) == 2
+    dep = load_bundle(path)
+    imgs = np.random.default_rng(8).integers(0, 256, (2, 368, 368, 3)).astype(np.uint8)
+    valid = np.asarray([[368, 368], [300, 280]], np.int32)
+    ops.reset_launch_counts()
+    n, got = dep.process_batch_async(imgs, valid_hw=valid)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = est.process_batch_async(imgs, valid_hw=valid)[1]
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert sum(len(p) for p in dep._finish(n, got)) > 0
+    assert {k: counts[k] for k in ("block1", "pyramid_peaks", "sample", "assoc")} == \
+        {"block1": 2, "pyramid_peaks": 1, "sample": 1, "assoc": 1}
+    assert counts["gt"] == counts["peaks"] == 0
+
+
 def test_one_request_through_serve_on_the_card_equals_process(cuda):
     import http.client
     import json

@@ -3,8 +3,9 @@ jax/flax/optax/orbax/grain, ``import tpupose_torch`` (and its data path)
 loads neither h5py nor cv2, and its own copies of the reference's
 numpy-only modules (config, topology, drawing, config_io, models/caffe,
 the data path's coco_eval, coco_prep, hdf5, tpr, pipeline, pack_tpr and
-the C sources of its host libraries, and parallel/'s pad_batch and
-grain_pipeline's Hdf5Source and PadForBatch) cannot drift from them.
+the C sources of its host libraries, parallel/'s pad_batch and
+grain_pipeline's Hdf5Source and PadForBatch, and deploy's bundle helpers)
+cannot drift from them.
 """
 
 import ast
@@ -55,7 +56,8 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
     assert len(files) > 30 and any(f.endswith("training/loop.py") for f in files)
     assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py", "serve.py", "cli.py",
             "config_io.py", "caffe.py", "coco_eval.py", "coco_prep.py", "hdf5.py", "tpr.py",
-            "rle.py", "pack_tpr.py", "grain_pipeline.py"} <= {os.path.basename(f) for f in files}
+            "rle.py", "pack_tpr.py", "grain_pipeline.py", "deploy.py"} <= \
+        {os.path.basename(f) for f in files}
     assert {f"tpupose_torch/parallel/{m}.py" for m in
             ("__init__", "distributed", "sharding", "inference", "pyramid", "spatial")} <= \
         {os.path.relpath(f, ROOT) for f in files}
@@ -77,6 +79,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "from tpupose_torch.data import grain_pipeline\n"
         "import tpupose_torch.parallel\n"
         "from tpupose_torch.parallel import distributed, inference, pyramid, sharding, spatial\n"
+        "import tpupose_torch.deploy\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print('LOADED', bad)\n"
         "print('OPTIONAL', sorted(m for m in sys.modules if m in ('h5py', 'cv2')))\n"
@@ -327,3 +330,32 @@ def test_native_sources_are_the_reference_code(source):
 
     got = code(f"tpupose_torch/native/{source}")
     assert len(got) > 40 and got == code(f"native/{source}")
+
+
+def test_deploy_helpers_equal_the_reference():
+    """``_pow2_sizes`` and ``_unflatten_params`` are the reference's code;
+    ``_flatten_params`` (numpy where the reference walks a jax pytree) gives
+    the same keys in the same order, the same arrays and the same refusals."""
+    import numpy as np
+
+    import tpupose.deploy as jdeploy
+    import tpupose_torch.deploy as tdeploy
+
+    names = ["_pow2_sizes", "_unflatten_params"]
+    assert _code("tpupose_torch/deploy.py", names) == _code("tpupose/deploy.py", names)
+    rng = np.random.default_rng(0)
+    tree = {"stage2_L1": {"conv1": {"kernel": rng.random((7, 7, 4, 3)), "bias": rng.random(3)}},
+            "cpm": {"conv4_3_CPM": {"kernel": rng.random((3, 3, 2, 2)),
+                                    "bias": np.zeros(2, np.float32)}},
+            "vgg": {"conv1_10": {"bias": rng.random(1)}, "conv1_1": {"bias": rng.random(2)}}}
+    got, want = tdeploy._flatten_params(tree), jdeploy._flatten_params(tree)
+    assert list(got) == list(want) and len(got) == 6
+    assert all(got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want)
+    assert tdeploy._order(got) == list(want)
+    for bad in ({"a/b": {"c": np.zeros(1)}}, {"a": [np.zeros(1)]}):
+        with pytest.raises(ValueError) as t_err:
+            tdeploy._flatten_params(bad)
+        with pytest.raises(ValueError) as j_err:
+            jdeploy._flatten_params(bad)
+        assert str(t_err.value).split(";")[0] == str(j_err.value).split(";")[0]
+    assert tdeploy._pow2_sizes(5) == jdeploy._pow2_sizes(5) == [1, 2, 4, 8]

@@ -3,7 +3,7 @@
 A second package beside the JAX reference ``tpupose``, mirroring its
 layout (``models/``, ``ops/``, ``decode/``, ``gt/``, ``training/``,
 ``data/``, ``parallel/``, ``reference_impl/``, ``infer.py``, ``buckets.py``,
-``tracking.py``) module for module. Public functions keep the reference's layouts — NHWC maps,
+``tracking.py``, ``deploy.py``) module for module. Public functions keep the reference's layouts — NHWC maps,
 (C, H*W) score maps, the same table dicts — so each one can be held
 against its JAX counterpart on the same inputs.
 

@@ -14,6 +14,8 @@ holds:
   convert-weights  reference weights (.h5 / .caffemodel / .pth) -> the
                    port's checkpoint (``training/checkpoint.py``, .npz)
   export-weights   the port's checkpoint -> reference-format Keras .h5
+  export-program   the serving programs + weights -> one .tppx bundle
+                   (``deploy.py``; ``serve --program`` loads it)
 
 Every command that runs a model runs it on the card (``--device cuda``,
 the default) unless ``--device cpu`` is given. Reading images and video
@@ -582,6 +584,28 @@ def cmd_export_weights(args) -> int:
     return 0
 
 
+def cmd_export_program(args) -> int:
+    """Serving programs + weights -> one .tppx deployment bundle: every
+    (bucket x power-of-two batch) program, traced with ``torch.export``
+    on ``--device``, for a serving host that runs them without the
+    model's code."""
+    from tpupose_torch.buckets import resolve_buckets
+    from tpupose_torch.deploy import save_bundle
+
+    bks = resolve_buckets(args.buckets)
+    if not bks:
+        print("error: export-program requires a bucket ladder "
+              "(--buckets default | 'HxW,...')", file=sys.stderr)
+        return 2
+    est = _estimator(args)
+    manifest = save_bundle(args.output, est, bks, max_batch=args.max_batch,
+                           log=lambda m: print(m, file=sys.stderr))
+    print(f"wrote {args.output}: {len(manifest['programs'])} programs, "
+          f"scales={tuple(manifest['scales'])}, "
+          f"pretrained={manifest['pretrained']}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tpupose-torch", description=__doc__)
     sub = parser.add_subparsers(dest="command", required=True)
@@ -692,6 +716,23 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint", required=True, help="checkpoint directory")
     p.add_argument("--output", required=True, help=".h5 path to write")
     p.set_defaults(fn=cmd_export_weights)
+
+    p = sub.add_parser(
+        "export-program",
+        help="serialize the serving programs + weights into a .tppx "
+             "deployment bundle (torch.export; serve --program loads it "
+             "without the model's code)",
+    )
+    p.add_argument("--output", required=True, help=".tppx path to write")
+    p.add_argument("--buckets", default="default",
+                   help="bucket ladder to export: 'default' or "
+                        "'368x368,368x496,...' (one program per "
+                        "bucket x power-of-two batch)")
+    p.add_argument("--max-batch", type=int, default=8,
+                   help="largest device batch to export (powers of two "
+                        "up to this are included)")
+    _add_common_model_args(p)
+    p.set_defaults(fn=cmd_export_program)
 
     args = parser.parse_args(argv)
     return args.fn(args)

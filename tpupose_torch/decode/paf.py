@@ -109,8 +109,9 @@ def candidates(prior, ok, scores, cap: int):
     ts, idx = ts[..., :cap], idx[..., :cap]
     ta = idx // k
     tb = idx % k
-    pa = torch.as_tensor(part_pairs[:, 0], dtype=torch.int64, device=scores.device)
-    pb = torch.as_tensor(part_pairs[:, 1], dtype=torch.int64, device=scores.device)
+    # columns copied out: under torch.export each becomes a constant of its own
+    pa = torch.as_tensor(part_pairs[:, 0].copy(), dtype=torch.int64, device=scores.device)
+    pb = torch.as_tensor(part_pairs[:, 1].copy(), dtype=torch.int64, device=scores.device)
     sa = torch.gather(scores[:, pa], -1, ta)
     sb = torch.gather(scores[:, pb], -1, tb)
     return ts, ta.to(torch.int32), tb.to(torch.int32), sa, sb

@@ -94,22 +94,40 @@ def peak_tables(flat: torch.Tensor, w: int, max_peaks: int,
 
     Returns xs/ys int32, scores f32 (0 in empty slots) and valid bool.
     The overflow decision is global over the R rows (one host sync), or
-    ``overflow`` when the caller decided it over a larger batch.
+    ``overflow`` when the caller decided it over a larger batch. Under
+    ``torch.export`` the decision stays on the device: both orders are in
+    the program, as the two branches of a ``torch.cond``.
     """
     k = max_peaks
     if overflow is None:
-        overflow = bool(overflowed(flat, k))
-    if overflow:
-        top, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
-        top, idx = top[:, :k], idx[:, :k]
-        ok = torch.isfinite(top)
-        return {
-            "xs": (idx % w).to(torch.int32),
-            "ys": (idx // w).to(torch.int32),
-            "scores": torch.where(ok, top, torch.zeros_like(top)),
-            "valid": ok,
-        }
-    return scan_tables(flat, w, k)
+        overflow = overflowed(flat, k)
+        if torch.compiler.is_exporting():
+            out = torch.cond(overflow, lambda f: _tuple(sorted_tables(f, w, k)),
+                             lambda f: _tuple(scan_tables(f, w, k)), (flat,))
+            return dict(zip(_TABLE_KEYS, out))
+        overflow = bool(overflow)
+    return sorted_tables(flat, w, k) if overflow else scan_tables(flat, w, k)
+
+
+_TABLE_KEYS = ("xs", "ys", "scores", "valid")
+
+
+def _tuple(tables: dict[str, torch.Tensor]) -> tuple[torch.Tensor, ...]:
+    return tuple(tables[key] for key in _TABLE_KEYS)
+
+
+def sorted_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.Tensor]:
+    """``peak_tables`` in score-descending order whatever the counts, ties
+    lowest index first."""
+    top, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    top, idx = top[:, :max_peaks], idx[:, :max_peaks]
+    ok = torch.isfinite(top)
+    return {
+        "xs": (idx % w).to(torch.int32),
+        "ys": (idx // w).to(torch.int32),
+        "scores": torch.where(ok, top, torch.zeros_like(top)),
+        "valid": ok,
+    }
 
 
 def scan_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.Tensor]:

@@ -83,41 +83,86 @@ class PoseEstimator:
 
     # --- the batched program ---------------------------------------------------
 
-    def _low_res(self, images: np.ndarray, scales):
-        """The network's last stage at every pyramid scale: (sizes, heats,
-        pafs), per scale (N, ph/8, pw/8, 19) and (N, ph/8, pw/8, 38)."""
+    def _net(self, params):
+        """The network's last stage, x -> (paf, heat): with the model's own
+        weights, or with ``params`` (state-dict names -> tensors) in their
+        place (``torch.func.functional_call``: every tensor replaced)."""
+        if params is None:
+            return lambda x: self.model(x)[-1]
+        return lambda x: torch.func.functional_call(self.model, params, (x,), strict=True)[-1]
+
+    def _upload(self, images: np.ndarray, valid_hw):
+        """(N, H, W, 3) uint8 and the optional (N, 2) ``valid_hw`` -> device
+        tensors (uint8, int32), through pinned memory on CUDA."""
+        host = [torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))]
+        if valid_hw is not None:
+            host.append(torch.from_numpy(np.ascontiguousarray(valid_hw, dtype=np.int32)))
+        if self.device.type == "cuda":
+            host = [t.pin_memory() for t in host]
+        dev = [t.to(self.device, non_blocking=True) for t in host]
+        return dev[0], (dev[1] if valid_hw is not None else None)
+
+    def _low_res(self, net, images: torch.Tensor, scales):
+        """The network's last stage at every pyramid scale of (N, H, W, 3)
+        uint8 device images: (sizes, heats, pafs), per scale (N, ph/8,
+        pw/8, 19) and (N, ph/8, pw/8, 38)."""
         h, w = images.shape[1:3]
         mcfg = self.cfg.model
         scales = tuple(scales) if scales else self.cfg.inference.scale_search
         sizes = image_ops.scale_sizes(h, w, scales, mcfg.boxsize, mcfg.stride)
-        host = torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        x0 = image_ops.normalize(host.to(self.device, non_blocking=True), mcfg.channel_order)
+        x0 = image_ops.normalize(images, mcfg.channel_order)
         heats, pafs = [], []
         for rh, rw, _, _ in sizes:
             x = image_ops.resize_bilinear(x0, rh, rw)
             x, _ = image_ops.pad_right_down(x, mcfg.stride, image_ops.PAD_NORM)
-            paf, heat = self.model(x)[-1]
+            paf, heat = net(x)
             heats.append(heat)
             pafs.append(paf)
         return sizes, heats, pafs
 
-    @torch.inference_mode()
-    def _scores(self, images: np.ndarray, scales, valid_hw):
+    def _averaged_maps(self, net, images: torch.Tensor, scales):
+        """``maps_batch`` of device images (see there)."""
+        h, w = images.shape[1:3]
+        sizes, heats, pafs = self._low_res(net, images, scales)
+        stride = self.cfg.model.stride
+        return (image_ops.average_upsampled(heats, sizes, h, w, stride),
+                image_ops.average_upsampled(pafs, sizes, h, w, stride))
+
+    def _device_scores(self, params, images: torch.Tensor, scales, valid_hw):
         """The batched program up to the peak scores, enqueued without a
         host sync: (masked scores (N, 18, H*W), map width, the PAF input of
-        the readout). ``_tables`` finishes it."""
+        the readout)."""
+        net = self._net(params)
         if self.cfg.inference.paf_readout == "fullres":
-            heat_in, paf_in = self.maps_batch(images, scales)
+            heat_in, paf_in = self._averaged_maps(net, images, scales)
         else:
             h, w = images.shape[1:3]
-            sizes, heats, pafs = self._low_res(images, scales)
+            sizes, heats, pafs = self._low_res(net, images, scales)
             geoms = [s[:2] for s in sizes]
             heat_in = ScaleSpace(heats, geoms, (h, w))
             paf_in = ScaleSpace(pafs, geoms, (h, w))
         flats, width = peak_scores_batch(heat_in, self.cfg.inference, valid_hw)
         return flats, width, paf_in
+
+    def program(self, params, images: torch.Tensor, valid_hw: torch.Tensor | None,
+                scales: tuple[float, ...] | None = None) -> dict[str, torch.Tensor]:
+        """The batched program on device tensors: ``params`` (None: the
+        model's own weights; else state-dict names -> tensors), images
+        uint8 (N, H, W, 3), ``valid_hw`` int32 (N, 2) or None -> the people
+        tables. No upload, no pinned memory, no host read but the decode's
+        peak-overflow switch, which ``torch.export`` keeps on the device
+        (``decode.peaks.peak_tables``). The live path runs it under
+        ``torch.inference_mode``, ``deploy.export_program`` under
+        ``torch.no_grad``."""
+        flats, width, paf_in = self._device_scores(params, images, scales, valid_hw)
+        return decode_scores_batch(flats, width, paf_in, self.cfg.inference)
+
+    @torch.inference_mode()
+    def _scores(self, images: np.ndarray, scales, valid_hw):
+        """``program`` up to the peak scores, from host images (the upload
+        included). ``_tables`` finishes it."""
+        x, vhw = self._upload(images, valid_hw)
+        return self._device_scores(None, x, scales, vhw)
 
     @torch.inference_mode()
     def _tables(self, scored, overflow: bool | None = None) -> dict[str, torch.Tensor]:
@@ -126,8 +171,10 @@ class PoseEstimator:
         flats, width, paf_in = scored
         return decode_scores_batch(flats, width, paf_in, self.cfg.inference, overflow)
 
+    @torch.inference_mode()
     def _run(self, images: np.ndarray, scales, valid_hw) -> dict[str, torch.Tensor]:
-        return self._tables(self._scores(images, scales, valid_hw))
+        x, vhw = self._upload(images, valid_hw)
+        return self.program(None, x, vhw, scales)
 
     # --- public API --------------------------------------------------------------
 
@@ -169,11 +216,8 @@ class PoseEstimator:
         device, whatever ``paf_readout`` says: what the full-res readout
         hands to the decode (``ops.image.average_upsampled`` of every
         scale's output, in f32)."""
-        h, w = images.shape[1:3]
-        sizes, heats, pafs = self._low_res(images, scales)
-        stride = self.cfg.model.stride
-        return (image_ops.average_upsampled(heats, sizes, h, w, stride),
-                image_ops.average_upsampled(pafs, sizes, h, w, stride))
+        x, _ = self._upload(images, None)
+        return self._averaged_maps(self._net(None), x, scales)
 
     def maps(self, image: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
         """``maps_batch`` of one (H, W, 3) image over the configured pyramid:

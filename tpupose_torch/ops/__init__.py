@@ -3,7 +3,11 @@
 Each kernel module pairs a hand-written CUDA kernel (``csrc/``) with its
 plain PyTorch version, and dispatches by device: a CPU tensor takes the
 plain version, a CUDA tensor the kernel (built at first use). There is
-no switch that forces either on CUDA.
+no switch that forces either on CUDA. The five inference kernels are
+registered operators (``torch.library.custom_op``, namespace
+``tpupose_torch``: the plain version is the CPU kernel, the launch the
+CUDA kernel), so that ``torch.export`` keeps each call as one node of a
+program (``deploy.py``); ``gt``, training only, is called directly.
 """
 
 from tpupose_torch.ops import (  # noqa: F401

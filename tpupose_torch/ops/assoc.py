@@ -3,7 +3,8 @@
 Counterpart of ``tpupose/ops/pallas_assoc.py``. ``assoc`` launches
 ``csrc/assoc.cu`` for CUDA tensors and runs ``assoc_plain`` for CPU
 tensors. Both are bit-equal to the reference's ``paf._greedy_accept`` +
-``assemble.assemble`` (same tie-breaks, same f32 addition order).
+``assemble.assemble`` (same tie-breaks, same f32 addition order), and both
+are the registered operator ``tpupose_torch::assoc``.
 """
 
 from __future__ import annotations
@@ -62,6 +63,49 @@ def assoc_plain(ts, ta, tb, sa, sb, limits, k_slots: int, n_conn: int,
     return _assemble.assemble(conns, max_people)
 
 
+_KEYS = ("rows", "score", "cnt", "active", "stamp")
+
+
+@torch.library.custom_op("tpupose_torch::assoc", mutates_args=(), device_types="cpu")
+def _assoc_op(ts: torch.Tensor, ta: torch.Tensor, tb: torch.Tensor, sa: torch.Tensor,
+              sb: torch.Tensor, limits: torch.Tensor, k_slots: int, n_conn: int,
+              max_people: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    out = assoc_plain(ts, ta, tb, sa, sb, limits, k_slots, n_conn, max_people)
+    return tuple(out[key].contiguous() for key in _KEYS)
+
+
+@_assoc_op.register_kernel("cuda")
+def _assoc_cuda(ts, ta, tb, sa, sb, limits, k_slots, n_conn, max_people):
+    b, n_limbs, cap = ts.shape
+    dev = ts.device
+    if k_slots > _MAX_SLOTS:
+        raise ValueError(f"assoc: {k_slots} peak slots; the kernel's used-slot sets hold "
+                         f"{_MAX_SLOTS}")
+    smem_bytes(n_limbs, n_conn, max_people, k_slots)
+    f32 = [t.to(torch.float32).contiguous() for t in (ts, sa, sb)]
+    i32 = [t.to(torch.int32).contiguous() for t in (ta, tb, limits)]
+    out = _assoc_fake(ts, ta, tb, sa, sb, limits, k_slots, n_conn, max_people)
+    if b:
+        KERNEL.launch(
+            dev, f32[0].data_ptr(), i32[0].data_ptr(), i32[1].data_ptr(),
+            f32[1].data_ptr(), f32[2].data_ptr(), i32[2].data_ptr(),
+            _part_pairs(dev).data_ptr(), b, n_limbs, cap, k_slots, n_conn, max_people,
+            *(t.data_ptr() for t in out),
+        )
+    return out
+
+
+@_assoc_op.register_fake
+def _assoc_fake(ts, ta, tb, sa, sb, limits, k_slots, n_conn, max_people):
+    b, p = ts.shape[0], max_people
+    return (ts.new_empty((b, p, topology.NUM_PARTS), dtype=torch.int32),
+            ts.new_empty((b, p), dtype=torch.float32),
+            ts.new_empty((b, p), dtype=torch.int32),
+            ts.new_empty((b, p), dtype=torch.bool),
+            ts.new_empty((b, p), dtype=torch.int32))
+
+
 def assoc(ts, ta, tb, sa, sb, limits, k_slots: int, n_conn: int,
           max_people: int) -> dict[str, torch.Tensor]:
     """Greedy accept + assembly for a batch of images.
@@ -73,7 +117,7 @@ def assoc(ts, ta, tb, sa, sb, limits, k_slots: int, n_conn: int,
     -1 = none), score (B, P) f32, cnt (B, P) int32, active (B, P) bool,
     stamp (B, P) int32 creation order — feed to
     ``assemble.cull_and_compact``. CPU tensors take ``assoc_plain``; CUDA
-    tensors the kernel.
+    tensors the kernel. Both are the operator ``tpupose_torch::assoc``.
     """
     b, n_limbs, cap = ts.shape
     if n_limbs != topology.NUM_LIMBS:
@@ -86,32 +130,8 @@ def assoc(ts, ta, tb, sa, sb, limits, k_slots: int, n_conn: int,
     if not (1 <= max_people <= 1024 and 1 <= n_conn and 1 <= k_slots):
         raise ValueError("assoc: need 1 <= max_people <= 1024, n_conn, k_slots >= 1")
     dev = ts.device
-    if dev.type == "cpu":
-        return assoc_plain(ts, ta, tb, sa, sb, limits, k_slots, n_conn, max_people)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"assoc: unsupported device {dev}")
-    if k_slots > _MAX_SLOTS:
-        raise ValueError(f"assoc: {k_slots} peak slots; the kernel's used-slot sets hold "
-                         f"{_MAX_SLOTS}")
-    smem_bytes(n_limbs, n_conn, max_people, k_slots)
-    f32 = [t.to(torch.float32).contiguous() for t in (ts, sa, sb)]
-    i32 = [t.to(torch.int32).contiguous() for t in (ta, tb, limits)]
-    if any(t.device != dev for t in f32 + i32):
+    if dev.type == "cuda" and any(t.device != dev for t in (ta, tb, sa, sb, limits)):
         raise ValueError("assoc: inputs on different devices")
-    p = max_people
-    out = {
-        "rows": torch.empty((b, p, topology.NUM_PARTS), dtype=torch.int32, device=dev),
-        "score": torch.empty((b, p), dtype=torch.float32, device=dev),
-        "cnt": torch.empty((b, p), dtype=torch.int32, device=dev),
-        "active": torch.empty((b, p), dtype=torch.bool, device=dev),
-        "stamp": torch.empty((b, p), dtype=torch.int32, device=dev),
-    }
-    if b:
-        KERNEL.launch(
-            dev, f32[0].data_ptr(), i32[0].data_ptr(), i32[1].data_ptr(),
-            f32[1].data_ptr(), f32[2].data_ptr(), i32[2].data_ptr(),
-            _part_pairs(dev).data_ptr(), b, n_limbs, cap, k_slots, n_conn, p,
-            out["rows"].data_ptr(), out["score"].data_ptr(), out["cnt"].data_ptr(),
-            out["active"].data_ptr(), out["stamp"].data_ptr(),
-        )
-    return out
+    return dict(zip(_KEYS, _assoc_op(ts, ta, tb, sa, sb, limits, k_slots, n_conn, max_people)))

@@ -4,6 +4,8 @@ Counterpart of ``tpupose/ops/pallas_block1.py``. ``block1`` launches the
 CUDA kernel ``csrc/block1.cu`` for CUDA tensors and runs
 ``block1_plain`` — the XLA path the Pallas kernel replaced
 (``block1_reference``: bf16 convs, bias added in bf16) — for CPU tensors.
+Both are the registered operator ``tpupose_torch::block1`` (its CPU and
+CUDA kernels), so that ``torch.export`` keeps the call as one node.
 """
 
 from __future__ import annotations
@@ -110,6 +112,51 @@ def refuse_grad(*tensors) -> None:
             "pallas_block1=False to train through the convs")
 
 
+@torch.library.custom_op("tpupose_torch::block1", mutates_args=(), device_types="cpu")
+def _block1_op(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
+               b2: torch.Tensor) -> torch.Tensor:
+    return block1_plain(x, k1, b1, k2, b2).contiguous()
+
+
+@_block1_op.register_kernel("cuda")
+def _block1_cuda(x, k1, b1, k2, b2):
+    n, h, w, _ = x.shape
+    # the image is read in place through its strides (an NHWC view of NCHW
+    # planes loads coalesced along W); only other types are converted
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    w1, bb1, w2, bb2 = packed_weights(k1, b1, k2, b2)
+    out = torch.empty((n, h // 2, w // 2, 64), dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    KERNEL.launch(
+        x.device, x.data_ptr(), int(x.dtype == torch.bfloat16), *x.stride(),
+        w1.data_ptr(), bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), out.data_ptr(), n, h, w,
+    )
+    return out
+
+
+@_block1_op.register_fake
+def _block1_fake(x, k1, b1, k2, b2):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h // 2, w // 2, 64), dtype=torch.bfloat16)
+
+
+def _block1_setup(ctx, inputs, output):
+    if inputs[0].device.type == "cuda":
+        refuse_grad(*inputs)
+    ctx.save_for_backward(*inputs)
+
+
+def _block1_backward(ctx, grad):
+    """The plain version's gradient: the CPU route trains through the convs."""
+    _, vjp = torch.func.vjp(block1_plain, *ctx.saved_tensors)
+    return vjp(grad)
+
+
+_block1_op.register_autograd(_block1_backward, setup_context=_block1_setup)
+
+
 def block1(x, k1, b1, k2, b2):
     """conv1_1+relu+conv1_2+relu+maxpool2x2 in bf16 with f32 accumulation.
 
@@ -128,26 +175,13 @@ def block1(x, k1, b1, k2, b2):
         raise ValueError(f"block1 needs (N, even H, even W, 3), got {tuple(x.shape)}")
     if tuple(k1.shape) != (3, 3, 3, 64) or tuple(k2.shape) != (3, 3, 64, 64):
         raise ValueError(f"block1 kernels {tuple(k1.shape)}, {tuple(k2.shape)}")
-    if x.device.type == "cpu":
-        return block1_plain(x, k1, b1, k2, b2)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"block1: unsupported device {x.device}")
-    refuse_grad(x, k1, b1, k2, b2)
-    if any(t.device != x.device for t in (k1, b1, k2, b2)):
-        raise ValueError("block1: weights and input on different devices")
-    # the image is read in place through its strides (an NHWC view of NCHW
-    # planes loads coalesced along W); only other types are converted
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        x = x.to(torch.float32)
-    w1, bb1, w2, bb2 = packed_weights(k1, b1, k2, b2)
-    out = torch.empty((n, h // 2, w // 2, 64), dtype=torch.bfloat16, device=x.device)
-    if out.numel() == 0:
-        return out
-    KERNEL.launch(
-        x.device, x.data_ptr(), int(x.dtype == torch.bfloat16), *x.stride(),
-        w1.data_ptr(), bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), out.data_ptr(), n, h, w,
-    )
-    return out
+    if x.device.type == "cuda":
+        refuse_grad(x, k1, b1, k2, b2)
+        if any(t.device != x.device for t in (k1, b1, k2, b2)):
+            raise ValueError("block1: weights and input on different devices")
+    return _block1_op(x, k1, b1, k2, b2)
 
 
 def wgmma_probe(pixels, w, shift: int, from_regs: bool = False):

@@ -5,7 +5,8 @@ Counterpart of ``tpupose/ops/pallas_peaks.py``. ``peak_scores`` launches
 tensors. The plain version fixes the arithmetic the kernel follows:
 horizontal pass, then vertical pass, taps in index order, each tap a
 separately rounded multiply and add — so the two agree bit for bit on
-one device, and the ``>=`` of the NMS falls the same way in both.
+one device, and the ``>=`` of the NMS falls the same way in both. Both are
+the registered operator ``tpupose_torch::peak_scores``.
 """
 
 from __future__ import annotations
@@ -83,24 +84,14 @@ def peak_scores_plain(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
     return scores.reshape(b, parts, h * w)
 
 
-def peak_scores(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
-                thre1: float = 0.1) -> torch.Tensor:
-    """Materialised heatmaps -> (B, parts, H*W) masked peak scores.
+@torch.library.custom_op("tpupose_torch::peak_scores", mutates_args=(), device_types="cpu")
+def _peaks_op(maps: torch.Tensor, parts: int, sigma: float, thre1: float) -> torch.Tensor:
+    return peak_scores_plain(maps, parts, sigma, thre1).contiguous()
 
-    maps: (B, H, W, C) with C >= ``parts`` (further channels are
-    ignored). Per channel: smooth = the map's sigma-blur (separable,
-    borders repeat the edge sample); peaks are smooth >= its 4 neighbours
-    (zero outside) and smooth > thre1. The output holds the unblurred map
-    at peaks and -inf elsewhere. CPU tensors take ``peak_scores_plain``;
-    CUDA tensors the kernel.
-    """
-    if maps.dim() != 4 or maps.shape[-1] < parts or parts < 1:
-        raise ValueError(f"peak_scores: maps {tuple(maps.shape)}, want (B, H, W, C >= {parts})")
+
+@_peaks_op.register_kernel("cuda")
+def _peaks_cuda(maps, parts, sigma, thre1):
     dev = maps.device
-    if dev.type == "cpu":
-        return peak_scores_plain(maps, parts, sigma, thre1)
-    if dev.type != "cuda":
-        raise ValueError(f"peak_scores: unsupported device {dev}")
     taps = gaussian_kernel1d(sigma)
     r = (len(taps) - 1) // 2
     smem_bytes(r)
@@ -118,6 +109,31 @@ def peak_scores(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
     p.maps, p.out = x.data_ptr(), out.data_ptr()
     KERNEL.launch(dev, ctypes.byref(p))
     return out
+
+
+@_peaks_op.register_fake
+def _peaks_fake(maps, parts, sigma, thre1):
+    b, h, w, _ = maps.shape
+    return maps.new_empty((b, parts, h * w), dtype=torch.float32)
+
+
+def peak_scores(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
+                thre1: float = 0.1) -> torch.Tensor:
+    """Materialised heatmaps -> (B, parts, H*W) masked peak scores.
+
+    maps: (B, H, W, C) with C >= ``parts`` (further channels are
+    ignored). Per channel: smooth = the map's sigma-blur (separable,
+    borders repeat the edge sample); peaks are smooth >= its 4 neighbours
+    (zero outside) and smooth > thre1. The output holds the unblurred map
+    at peaks and -inf elsewhere. CPU tensors take ``peak_scores_plain``;
+    CUDA tensors the kernel. Both are the operator
+    ``tpupose_torch::peak_scores``.
+    """
+    if maps.dim() != 4 or maps.shape[-1] < parts or parts < 1:
+        raise ValueError(f"peak_scores: maps {tuple(maps.shape)}, want (B, H, W, C >= {parts})")
+    if maps.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"peak_scores: unsupported device {maps.device}")
+    return _peaks_op(maps, parts, float(sigma), float(thre1))
 
 
 def find_peaks_kernel(heatmap: torch.Tensor, max_peaks: int = 96, sigma: float = 3.0,

@@ -4,7 +4,9 @@ Counterpart of ``tpupose/ops/pallas_pyramid_peaks.py``.
 ``pyramid_peak_scores`` launches ``csrc/pyramid_peaks.cu`` for CUDA
 tensors and runs ``pyramid_peak_scores_plain`` —
 ``scalespace.pyramid_heat_maps`` + ``peaks.masked_scores``, the path the
-Pallas kernel replaced — for CPU tensors.
+Pallas kernel replaced — for CPU tensors. Both are the registered
+operator ``tpupose_torch::pyramid_peak_scores``, whose ``ScaleSpace`` is a
+list of maps and its geometry as ints.
 
 The kernel takes the operators of ``chain_matrices`` as band tables
 (``band_table``, ``device_bands``), built on the host once per geometry,
@@ -181,6 +183,40 @@ def pyramid_peak_scores_plain(space: ScaleSpace, parts: int, sigma: float,
     return masked_scores(avg, smooth, thre1)
 
 
+def _space(maps, geoms: list[int], out_h: int, out_w: int) -> ScaleSpace:
+    """The ScaleSpace of an operator's arguments (``geoms`` flat: rh, rw per scale)."""
+    return ScaleSpace(maps, list(zip(geoms[::2], geoms[1::2])), (out_h, out_w))
+
+
+@torch.library.custom_op("tpupose_torch::pyramid_peak_scores", mutates_args=(),
+                         device_types="cpu")
+def _pyramid_op(maps: list[torch.Tensor], geoms: list[int], out_h: int, out_w: int,
+                parts: int, sigma: float, thre1: float) -> torch.Tensor:
+    space = _space(maps, geoms, out_h, out_w)
+    return pyramid_peak_scores_plain(space, parts, sigma, thre1).contiguous()
+
+
+@_pyramid_op.register_kernel("cuda")
+def _pyramid_cuda(maps, geoms, out_h, out_w, parts, sigma, thre1):
+    space = _space(maps, geoms, out_h, out_w)
+    b = maps[0].shape[0]
+    dev = maps[0].device
+    maps = [m.detach() if m.dtype == torch.float32 else m.detach().float() for m in maps]
+    smem_bytes(scale_shapes(space), space.out_hw, float(sigma))
+    if b * -(-out_w // _COL_TILE) > 65535:
+        raise ValueError(f"pyramid_peak_scores: {b} images of width {out_w} exceed the grid")
+    out = torch.empty((b, parts, out_h * out_w), dtype=torch.float32, device=dev)
+    if out.numel():
+        p = _params(ScaleSpace(maps, space.geoms, space.out_hw), parts, float(sigma), thre1, out)
+        KERNEL.launch(dev, ctypes.byref(p))
+    return out
+
+
+@_pyramid_op.register_fake
+def _pyramid_fake(maps, geoms, out_h, out_w, parts, sigma, thre1):
+    return maps[0].new_empty((maps[0].shape[0], parts, out_h * out_w), dtype=torch.float32)
+
+
 def pyramid_peak_scores(space: ScaleSpace, parts: int = 18, sigma: float = 3.0,
                         thre1: float = 0.1) -> torch.Tensor:
     """Per-scale low-res heatmaps -> (B, parts, H*W) masked peak scores.
@@ -191,7 +227,7 @@ def pyramid_peak_scores(space: ScaleSpace, parts: int = 18, sigma: float = 3.0,
     neighbours (zero outside) and smooth > thre1. The output holds avg at
     peaks and -inf elsewhere. CPU tensors take the plain version; CUDA
     tensors the kernel, which reads f32 maps in place through their
-    strides.
+    strides. Both are the operator ``tpupose_torch::pyramid_peak_scores``.
     """
     maps = space.maps
     b = maps[0].shape[0]
@@ -199,24 +235,15 @@ def pyramid_peak_scores(space: ScaleSpace, parts: int = 18, sigma: float = 3.0,
         if m.dim() != 4 or m.shape[0] != b or m.shape[-1] < parts or parts < 1:
             raise ValueError(f"pyramid_peak_scores: map {tuple(m.shape)}")
     dev = maps[0].device
-    if dev.type == "cpu":
-        return pyramid_peak_scores_plain(space, parts, sigma, thre1)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"pyramid_peak_scores: unsupported device {dev}")
-    if len(maps) > _MAX_SCALES:
-        raise ValueError(f"pyramid_peak_scores: at most {_MAX_SCALES} scales")
-    if any(m.device != dev for m in maps):
-        raise ValueError("pyramid_peak_scores: maps on different devices")
-    maps = [m.detach() if m.dtype == torch.float32 else m.detach().float() for m in maps]
-    out_h, out_w = space.out_hw
-    smem_bytes(scale_shapes(space), space.out_hw, float(sigma))
-    if b * -(-out_w // _COL_TILE) > 65535:
-        raise ValueError(f"pyramid_peak_scores: {b} images of width {out_w} exceed the grid")
-    out = torch.empty((b, parts, out_h * out_w), dtype=torch.float32, device=dev)
-    if out.numel():
-        p = _params(ScaleSpace(maps, space.geoms, space.out_hw), parts, float(sigma), thre1, out)
-        KERNEL.launch(dev, ctypes.byref(p))
-    return out
+    if dev.type == "cuda":
+        if len(maps) > _MAX_SCALES:
+            raise ValueError(f"pyramid_peak_scores: at most {_MAX_SCALES} scales")
+        if any(m.device != dev for m in maps):
+            raise ValueError("pyramid_peak_scores: maps on different devices")
+    geoms = [v for g in space.geoms for v in g]
+    return _pyramid_op(list(maps), geoms, *space.out_hw, parts, float(sigma), float(thre1))
 
 
 def _params(space: ScaleSpace, parts: int, sigma: float, thre1: float,

@@ -5,14 +5,17 @@ Counterpart of ``tpupose/ops/pallas_sample.py`` (the readout contract of
 for CUDA tensors and runs ``sample_avg_plain`` for CPU tensors. The
 kernel takes its taps from ``tap_table``, which is ``axis_taps`` at every
 coordinate and one beyond each edge, built on the host once per geometry.
+Both are the registered operator ``tpupose_torch::sample_avg``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.ops._build import CudaKernel
 
 _MAX_SCALES = 8
@@ -117,16 +120,16 @@ def staged_bytes(space) -> int:
     return pixels * 8 + _MAX_SCALES * 4 + len(space.maps) * (out_h + out_w + 4) * 24
 
 
-def _device_chans(chans, device):
+def _device_chans(pairs: list[int], device):
     """The (L, 2) channel pairs on ``device``, uploaded once per table: a
     host-to-device copy per call would hold the host until the stream's
     earlier work is done."""
-    key = (tuple(chans.reshape(-1).tolist()), str(device))
+    key = (tuple(pairs), str(device))
     hit = _CHANS.get(key)
     if hit is None:
         while len(_CHANS) >= _TABLES_MAX:
             del _CHANS[next(iter(_CHANS))]
-        hit = _CHANS[key] = chans.to(device).contiguous()
+        hit = _CHANS[key] = torch.tensor(pairs, dtype=torch.int32).reshape(-1, 2).to(device)
     return hit
 
 
@@ -159,45 +162,28 @@ def sample_avg_plain(space, iy, ix, chans):
     return (acc / float(len(space.maps))).reshape(*shape, 2)
 
 
-def sample_avg(space, iy: torch.Tensor, ix: torch.Tensor, chans) -> torch.Tensor:
-    """Scale-averaged chained-bilinear readout at integer image points.
+def _space(maps, geoms: list[int], out_h: int, out_w: int):
+    """The ScaleSpace of an operator's arguments (``geoms`` flat: rh, rw per scale)."""
+    return ScaleSpace(maps, list(zip(geoms[::2], geoms[1::2])), (out_h, out_w))
 
-    space: ScaleSpace of per-scale (B, Hl, Wl, C) maps. iy/ix: int (B, L,
-    *S) points (one outside the image reads as the plain version's clamped
-    taps do, the edge pixel's value); chans: (L, 2) channel pair of each group
-    l. Returns (B, L, *S, 2) f32: ``mean_s(upsample_to(maps[s]))`` at the
-    points, on channels chans[l]. CPU tensors take ``sample_avg_plain``;
-    CUDA tensors the kernel: its staged variant where one image's channel
-    pair of every scale and the tap table fit a block's shared memory, its
-    direct variant otherwise.
-    """
-    chans = torch.as_tensor(chans, dtype=torch.int32, device="cpu")
-    if iy.shape != ix.shape or iy.dim() < 2 or tuple(chans.shape) != (iy.shape[1], 2):
-        raise ValueError(f"sample_avg: points {tuple(iy.shape)}/{tuple(ix.shape)}, "
-                         f"chans {tuple(chans.shape)}")
-    b = iy.shape[0]
-    for m in space.maps:
-        if m.dim() != 4 or m.shape[0] != b:
-            raise ValueError(f"sample_avg: map {tuple(m.shape)} for batch {b}")
-        if int(chans.max()) >= m.shape[-1] or int(chans.min()) < 0:
-            raise ValueError("sample_avg: channel index out of range")
+
+@torch.library.custom_op("tpupose_torch::sample_avg", mutates_args=(), device_types="cpu")
+def _sample_op(maps: list[torch.Tensor], geoms: list[int], out_h: int, out_w: int,
+               iy: torch.Tensor, ix: torch.Tensor, chans: list[int]) -> torch.Tensor:
+    pairs = torch.tensor(chans, dtype=torch.int32).reshape(-1, 2)
+    return sample_avg_plain(_space(maps, geoms, out_h, out_w), iy, ix, pairs).contiguous()
+
+
+@_sample_op.register_kernel("cuda")
+def _sample_cuda(maps, geoms, out_h, out_w, iy, ix, chans):
+    space = _space(maps, geoms, out_h, out_w)
     dev = iy.device
-    if dev.type == "cpu":
-        return sample_avg_plain(space, iy, ix, chans)
-    if dev.type != "cuda":
-        raise ValueError(f"sample_avg: unsupported device {dev}")
-    if len(space.maps) > _MAX_SCALES:
-        raise ValueError(f"sample_avg: at most {_MAX_SCALES} scales")
-    if any(max(m.shape[1:3]) > 32767 for m in space.maps):
-        raise ValueError("sample_avg: the tap table holds 16-bit low-res indices")
-    maps = [m.to(torch.float32).contiguous() for m in space.maps]
-    if any(m.device != dev for m in maps):
-        raise ValueError("sample_avg: maps and points on different devices")
+    b = iy.shape[0]
+    maps = [m.to(torch.float32).contiguous() for m in maps]
     iyc = iy.to(torch.int32).contiguous()
     ixc = ix.to(torch.int32).contiguous()
     ch = _device_chans(chans, dev)
     out = torch.empty((*iy.shape, 2), dtype=torch.float32, device=dev)
-    out_h, out_w = space.out_hw
     p = _Params()
     p.n_scales = len(maps)
     p.batch = b
@@ -211,10 +197,57 @@ def sample_avg(space, iy: torch.Tensor, ix: torch.Tensor, chans) -> torch.Tensor
                                   ch.data_ptr(), out.data_ptr())
     # one 8-byte load per tap where every pair is two neighbouring channels
     # at an 8-byte aligned offset, chosen here once per launch
-    p.paired = int(bool((chans[:, 0] % 2 == 0).all() and (chans[:, 1] == chans[:, 0] + 1).all()
-                        and all(m.shape[3] % 2 == 0 and m.data_ptr() % 8 == 0 for m in maps)))
+    firsts, seconds = chans[::2], chans[1::2]
+    p.paired = int(all(c0 % 2 == 0 and c1 == c0 + 1 for c0, c1 in zip(firsts, seconds))
+                   and all(m.shape[3] % 2 == 0 and m.data_ptr() % 8 == 0 for m in maps))
     tap_w, tap_i = _device_tap_table(space, dev)
     p.tap_w, p.tap_i = tap_w.data_ptr(), tap_i.data_ptr()
     if out.numel():
         KERNEL.launch(dev, ctypes.byref(p))
     return out
+
+
+@_sample_op.register_fake
+def _sample_fake(maps, geoms, out_h, out_w, iy, ix, chans):
+    return iy.new_empty((*iy.shape, 2), dtype=torch.float32)
+
+
+def sample_avg(space, iy: torch.Tensor, ix: torch.Tensor, chans) -> torch.Tensor:
+    """Scale-averaged chained-bilinear readout at integer image points.
+
+    space: ScaleSpace of per-scale (B, Hl, Wl, C) maps. iy/ix: int (B, L,
+    *S) points (one outside the image reads as the plain version's clamped
+    taps do, the edge pixel's value); chans: (L, 2) channel pair of each group
+    l. Returns (B, L, *S, 2) f32: ``mean_s(upsample_to(maps[s]))`` at the
+    points, on channels chans[l]. CPU tensors take ``sample_avg_plain``;
+    CUDA tensors the kernel: its staged variant where one image's channel
+    pair of every scale and the tap table fit a block's shared memory, its
+    direct variant otherwise. Both are the operator
+    ``tpupose_torch::sample_avg``, which takes the pairs as a flat list of
+    ints (a table of the topology, never a traced value).
+    """
+    if isinstance(chans, torch.Tensor):
+        chans = chans.cpu().numpy()
+    chans = np.asarray(chans, dtype=np.int64)
+    if iy.shape != ix.shape or iy.dim() < 2 or tuple(chans.shape) != (iy.shape[1], 2):
+        raise ValueError(f"sample_avg: points {tuple(iy.shape)}/{tuple(ix.shape)}, "
+                         f"chans {tuple(chans.shape)}")
+    pairs = chans.reshape(-1).tolist()
+    b = iy.shape[0]
+    for m in space.maps:
+        if m.dim() != 4 or m.shape[0] != b:
+            raise ValueError(f"sample_avg: map {tuple(m.shape)} for batch {b}")
+        if max(pairs) >= m.shape[-1] or min(pairs) < 0:
+            raise ValueError("sample_avg: channel index out of range")
+    dev = iy.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"sample_avg: unsupported device {dev}")
+    if dev.type == "cuda":
+        if len(space.maps) > _MAX_SCALES:
+            raise ValueError(f"sample_avg: at most {_MAX_SCALES} scales")
+        if any(max(m.shape[1:3]) > 32767 for m in space.maps):
+            raise ValueError("sample_avg: the tap table holds 16-bit low-res indices")
+        if any(m.device != dev for m in space.maps):
+            raise ValueError("sample_avg: maps and points on different devices")
+    geoms = [v for g in space.geoms for v in g]
+    return _sample_op(list(space.maps), geoms, *space.out_hw, iy, ix, pairs)

@@ -37,6 +37,8 @@ loop may spend on one request. ``?draw=1`` needs cv2 for the overlay.
 Run: python -m tpupose_torch.serve --port 8080 [--weights model.h5]
      [--scales 1] [--max-batch 8 --batch-window-ms 5 --buckets default
      --warmup] [--dp N|auto] [--device cpu]
+     python -m tpupose_torch.serve --program model.tppx [--warmup]
+     (a bundle of ``cli export-program``, ``tpupose_torch.deploy``)
 """
 
 from __future__ import annotations
@@ -664,15 +666,70 @@ def _run_until_exit(server, max_rss_mb: float | None = None) -> int:
             server.batcher.close()
 
 
+def _serve_program(args, bks) -> int:
+    """``main`` with ``--program``: the bundle pins weights, pyramid and
+    decode, so the live model's flags are refused (rc 2)."""
+    for flag, val in (("--weights", args.weights),
+                      ("--checkpoint", args.checkpoint),
+                      ("--config", args.config),
+                      ("--scales", args.scales),
+                      ("--boxsize", args.boxsize),
+                      ("--stages", args.stages),
+                      ("--decode-groups", args.decode_groups),
+                      ("--max-peaks", args.max_peaks),
+                      ("--dp", args.dp)):
+        if val:
+            print(f"error: {flag} cannot be combined with --program "
+                  "(the bundle pins weights, pyramid and decode; "
+                  "data-parallel serving needs the live estimator)",
+                  file=sys.stderr)
+            return 2
+    from tpupose_torch.deploy import load_bundle
+
+    try:
+        est = load_bundle(args.program, device=args.device)
+    except Exception as e:  # a missing, corrupt or foreign file: a clean rc 2
+        print(f"error: cannot load bundle {args.program}: {e}", file=sys.stderr)
+        return 2
+    if bks is None:
+        bks = est.buckets
+    elif tuple(bks) != est.buckets:
+        print(f"error: --buckets {tuple(bks)} does not match the "
+              f"bundle's exported ladder {est.buckets} (programs "
+              "exist only for the exported canvases)", file=sys.stderr)
+        return 2
+    if args.max_batch is None:
+        args.max_batch = est.max_batch
+    elif args.max_batch > est.max_batch:
+        # est.max_batch is the largest EXPORTED batch dimension (export
+        # rounds --max-batch up to the next power of two)
+        print(f"error: --max-batch {args.max_batch} exceeds the "
+              f"bundle's exported maximum {est.max_batch}", file=sys.stderr)
+        return 2
+    if args.warmup:
+        n = warmup_estimator(est, bks, max_batch=args.max_batch,
+                             log=lambda m: print(m, file=sys.stderr))
+        print(f"warmed {n} programs", file=sys.stderr)
+    server = serve(
+        est, host=args.host, port=args.port, max_batch=args.max_batch,
+        batch_window_ms=args.batch_window_ms, buckets=bks,
+        max_queue=args.max_queue, request_timeout_s=args.request_timeout_s,
+        max_pending=args.max_pending,
+    )
+    print(f"serving bundle {args.program} on http://{args.host}:{args.port}  "
+          f"(pretrained={est.pretrained})")
+    return _run_until_exit(server, args.max_rss_mb)
+
+
 def main(argv=None) -> int:
     from tpupose_torch.cli import _add_common_model_args, _estimator
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
-    ap.add_argument("--max-batch", type=int, default=1,
+    ap.add_argument("--max-batch", type=int, default=None,
                     help="> 1 enables cross-request micro-batching (default 1: "
-                         "serial service)")
+                         "serial service; with --program, the bundle's maximum)")
     ap.add_argument("--batch-window-ms", type=float, default=5.0)
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bound on queued requests before 503 shedding "
@@ -698,10 +755,19 @@ def main(argv=None) -> int:
                     help="recycle guard: when process RSS exceeds this, stop "
                          "accepting, drain in-flight requests and exit 3 so a "
                          "supervisor restarts the server")
+    ap.add_argument("--program", default=None, metavar="TPPX",
+                    help="serve a .tppx deployment bundle (cli export-program): "
+                         "exported programs + weights, no model code on this "
+                         "host. Bucket ladder and max batch default to the "
+                         "bundle's own")
     _add_common_model_args(ap)
     args = ap.parse_args(argv)
 
     bks = buckets_lib.resolve_buckets(args.buckets)
+    if args.program:
+        return _serve_program(args, bks)
+    if args.max_batch is None:
+        args.max_batch = 1    # live-model default: serial dispatch
     if args.warmup and not bks:
         print("error: --warmup requires --buckets (without a bucket "
               "ladder the request shapes, hence the geometries to "
