@@ -198,9 +198,24 @@ exits non-zero):
      of phase h's PNGs, each reply held to the live estimator at its device
      batch (phase h's rule); tpupose_torch.models and tpupose_torch.infer
      never imported there; images/s of the bundle beside the live
-     estimator's, 4 scales, batch 8, in turns (live, bundle, bundle, live).
+     estimator's, 4 scales, batch 8, in turns (live, bundle, bundle, live);
+     both manifests name the card with its index.
+  l. the domain-adaptation slice (after phase k, on phase d's estimator's
+     weights): make_synthetic_dataset --style light --count 16 --size 368
+     --seed 0 --max-persons 3 to .tpr (records/s, host), pack_tpr --pre-pad
+     368 368; `finetune --dataset` 3 steps from those weights saved as a
+     checkpoint, clip_norm 5: 13 finite losses a step, every vgg tensor
+     bit-identical, stage 2 moved, gt launched 3 times and nothing else;
+     `eval --dataset` of the finetuned checkpoint over the unpadded set
+     prints its JSON (a random network: AP about 0), the set's GT as
+     detections scores AP 1.0, block1, pyramid_peaks, sample and assoc
+     launched, gt and peaks not; walkthrough(dir, "cuda") against
+     walkthrough(dir, "cpu"): 2 people of 18 parts, the peak tables' xs, ys
+     and valid equal, people equal in coordinates and parts, scores within
+     1e-5, gt, peaks and assoc launched once each and nothing else, five
+     panels. Its seconds are printed.
 
-The phase e, f, h, i, j and k lines are printed once more at the end; the last three
+The phase e, f, h, i, j, k and l lines are printed once more at the end; the last three
 lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero before
@@ -1670,9 +1685,13 @@ def _deploy_phase(torch, np, params, card: str, images: list, bodies: list) -> d
         if len(manifest["programs"]) != 8 or max(p_bytes.values()) >= 0.05 * w_bytes:
             raise AssertionError(f"bundle: {len(manifest['programs'])} programs, program bytes "
                                  f"{p_bytes} against weights.npz {w_bytes}")
+        named = {m["device"] for m in (manifest, full_manifest)}
+        if named != {f"cuda:{torch.cuda.current_device()}"}:
+            raise AssertionError(f"the manifests name the devices {named}")
         _say("k", f"exported {len(manifest['programs'])} scale-space programs (368x368 and "
                   f"496x656, batch 1/2/4/8) and {len(full_manifest['programs'])} full-res "
-                  f"(368x368, batch 1/2) on the card with torch {torch.__version__}: "
+                  f"(368x368, batch 1/2) on the card with torch {torch.__version__}, the "
+                  f"manifests naming {named.pop()}: "
                   + "; ".join(exported)
                   + f"; weights.npz {w_bytes} bytes, the largest program "
                   f"{max(p_bytes.values())} ({max(p_bytes.values()) / w_bytes:.4f} of it)")
@@ -1760,6 +1779,160 @@ def _deploy_phase(torch, np, params, card: str, images: list, bodies: list) -> d
               f"bundle's process {child_s:.1f} s; phase k {time.perf_counter() - t_phase:.1f} s "
               f"({card})")
     del est, est_full
+    return counts
+
+
+def _adaptation_phase(torch, np, params, card: str) -> dict:
+    """Phase l: the domain-adaptation slice on the card. ``params`` are phase
+    d's seeded estimator's weights (its output convolutions scaled). A light
+    synthetic set made by make_synthetic_dataset, pre-padded by pack_tpr,
+    finetuned 3 steps from those weights, evaluated; then the decode
+    walkthrough on the card against the CPU. Returns the launches of the
+    finetune, the eval and the walkthrough on the card."""
+    import argparse
+    import contextlib
+    import csv
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    from tpupose_torch import cli as tcli
+    from tpupose_torch import config as tconfig
+    from tpupose_torch import ops
+    from tpupose_torch.data import coco_eval, pack_tpr, tpr
+    from tpupose_torch.data import make_synthetic_dataset as synth
+    from tpupose_torch.examples import walkthrough as walk
+    from tpupose_torch.models import weights as weights_lib
+    from tpupose_torch.testing import people_from_gt
+    from tpupose_torch.training import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_adapt_")
+    default = tconfig.DEFAULT
+    try:
+        raw, fast = os.path.join(work, "light.tpr"), os.path.join(work, "light368.tpr")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            if synth.main(["--output", raw, "--style", "light", "--count", "16", "--size", "368",
+                           "--seed", "0", "--max-persons", "3"]):
+                raise AssertionError("make_synthetic_dataset failed")
+        make_s = time.perf_counter() - t0
+        n_rec = tpr.num_samples(raw)
+        if said.getvalue() != f"wrote {n_rec} records -> {raw}\n" or n_rec < 16:
+            raise AssertionError(f"make_synthetic_dataset printed {said.getvalue()!r}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            pack_tpr.main(["--input", raw, "--output", fast, "--pre-pad", "368", "368",
+                           "--max-persons", str(default.augment.max_persons)])
+        with tpr.TprReader(fast) as r:
+            if not (r.static_shapes and r.count == n_rec and r.dims(0) == (368, 368)):
+                raise AssertionError("the pre-padded file is not 368x368 throughout")
+        _say("l", f"make_synthetic_dataset --style light --count 16 --size 368 --seed 0 "
+                  f"--max-persons 3 -> .tpr: {n_rec} records in {make_s:.3f} s "
+                  f"({n_rec / make_s:.1f} records/s, host); pack_tpr --pre-pad 368 368 ({card})")
+
+        # finetune 3 steps from phase d's weights, saved as a checkpoint
+        ckpt = os.path.join(work, "weights")
+        ckpt_lib.save(ckpt, {"params": weights_lib.from_flax(params),
+                             "opt_state": {"count": 0, "mini_step": 0}, "step": 0})
+        cfg = dataclasses.replace(default, train=dataclasses.replace(
+            default.train, clip_norm=5.0, log_every=1))
+        tuned = os.path.join(work, "finetune")
+        tconfig.DEFAULT = cfg
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            ran = _cli_json(tcli, ["finetune", "--dataset", fast, "--workdir", tuned,
+                                   "--max-steps", "3", "--checkpoint", ckpt])
+            torch.cuda.synchronize()
+            finetune_s = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        finally:
+            tconfig.DEFAULT = default
+        if ran["steps"] != 3 or counts["gt"] != 3 or any(
+                v for k, v in counts.items() if k != "gt"):
+            raise AssertionError(f"finetune: {ran['steps']} steps, launches {counts}")
+        with open(os.path.join(tuned, "training.csv")) as f:
+            rows = list(csv.DictReader(f))
+        n_losses = 2 * cfg.model.num_stages + 1          # 13 at full width
+        if len(rows) != 3 or any(len(r) != n_losses + 1 or not np.isfinite(
+                [float(v) for k, v in r.items() if k != "step"]).all() for r in rows):
+            raise AssertionError(f"finetune: the logged losses {rows}")
+        tuned_ckpt = os.path.join(tuned, cfg.train.checkpoint_dir)
+        end = ckpt_lib.restore_params(tuned_ckpt)
+        for layer, leaves in params["vgg"].items():
+            for leaf, arr in leaves.items():
+                if not np.array_equal(end["vgg"][layer][leaf], np.asarray(arr)):
+                    raise AssertionError(f"finetune: vgg/{layer}/{leaf} changed")
+        moved = np.abs(end["stage2_L1"]["conv1"]["kernel"]
+                       - np.asarray(params["stage2_L1"]["conv1"]["kernel"])).max()
+        if not moved > 0:
+            raise AssertionError("finetune: stage2_L1/conv1 did not move")
+        _say("l", f"finetune --dataset (pre-padded, {n_rec} records) --checkpoint (phase d's "
+                  f"weights) 3 steps, batch {cfg.train.batch_size}, clip_norm 5.0: {n_losses} "
+                  f"finite losses per step (total {float(rows[0]['total']):.4f} -> "
+                  f"{float(rows[-1]['total']):.4f}); {len(params['vgg'])} vgg layers "
+                  f"bit-identical, stage2_L1/conv1 moved by {moved:.3e}; launches {counts}; "
+                  f"{finetune_s:.1f} s (host clock, the command) ({card})")
+
+        # eval of the finetuned checkpoint over the unpadded set
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        printed = _cli_json(tcli, ["eval", "--dataset", raw, "--checkpoint", tuned_ckpt])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        counts_eval = ops.launch_counts()
+        if (min(counts_eval[k] for k in ("block1", "pyramid_peaks", "sample", "assoc")) < 1
+                or counts_eval["gt"] or counts_eval["peaks"]):
+            raise AssertionError(f"launches over eval: {counts_eval}")
+        gts = [gt for _, gt, _ in tcli._eval_inputs(argparse.Namespace(
+            annotations=None, images=None, dataset=raw))]
+        truth = coco_eval.evaluate([people_from_gt(gt) for gt in gts], gts)
+        if len(gts) != n_rec or truth["AP"] != 1.0 or not 0.0 <= printed["AP"] <= 1.0:
+            raise AssertionError(f"eval: printed {printed}; the GT as detections {truth}")
+        _say("l", f"eval --dataset ({n_rec} records, 4 scales) of the finetuned checkpoint: "
+                  f"{json.dumps(printed)} (random weights); the set's GT as detections scores "
+                  f"AP 1.0; launches {counts_eval}; {eval_s:.1f} s, {n_rec / eval_s:.2f} "
+                  f"images/s (host clock, the command, the estimator's build included) ({card})")
+        for key, v in counts_eval.items():
+            counts[key] += v
+
+        # the walkthrough on the card against the CPU
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = walk.walkthrough(os.path.join(work, "walk_cuda"), "cuda")
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+        counts_walk = ops.launch_counts()
+        want = walk.walkthrough(os.path.join(work, "walk_cpu"), "cpu")
+        if counts_walk != {**{k: 0 for k in counts_walk}, "gt": 1, "peaks": 1, "assoc": 1}:
+            raise AssertionError(f"launches over the walkthrough: {counts_walk}")
+        for key in ("xs", "ys", "valid"):
+            if not np.array_equal(got["peaks"][key], want["peaks"][key]):
+                raise AssertionError(f"walkthrough: the peak tables' {key} differ from the CPU's")
+        people, cpu_people = got["people"], want["people"]
+        if [p["num_parts"] for p in people] != [18, 18] or len(cpu_people) != 2:
+            raise AssertionError(f"walkthrough: {[p['num_parts'] for p in people]} parts")
+        for a, b in zip(people, cpu_people):
+            if (a["num_parts"] != b["num_parts"] or abs(a["score"] - b["score"]) > 1e-5
+                    or {k: (v["x"], v["y"]) for k, v in a["keypoints"].items()}
+                    != {k: (v["x"], v["y"]) for k, v in b["keypoints"].items()}):
+                raise AssertionError(f"walkthrough: {a} != {b} (CPU)")
+        panels = sorted(os.listdir(os.path.join(work, "walk_cuda")))
+        if panels != sorted(walk.PANELS):
+            raise AssertionError(f"walkthrough: panels {panels}")
+        label_err = float(np.abs(got["labels"] - want["labels"]).max())
+        _say("l", f"walkthrough on the card: 2 people, 18 parts each, peak tables (xs, ys, "
+                  f"valid) equal to the CPU's, people equal in coordinates and parts, scores "
+                  f"within 1e-5 ({people[0]['score']:.6f}, {people[1]['score']:.6f}); labels "
+                  f"{label_err:.2e} from the CPU's; launches {counts_walk}; five panels; "
+                  f"{walk_s:.2f} s (host clock) ({card})")
+        for key, v in counts_walk.items():
+            counts[key] += v
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _say("l", f"phase l took {time.perf_counter() - t_phase:.1f} s; launches over its paths "
+              f"{counts}")
     return counts
 
 
@@ -2804,6 +2977,10 @@ def main(parent: str | None = None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts_deploy = _deploy_phase(torch, np, k_params, card, k_images, k_bodies)
+    # --- l. the domain-adaptation slice, on phase d's estimator's weights ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_adapt = _adaptation_phase(torch, np, k_params, card)
     if parent is not None:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2812,7 +2989,7 @@ def main(parent: str | None = None) -> int:
     print("the timings and the training path once more, for a reader of the last lines:",
           flush=True)
     for line in [line for line in _SAID
-                 if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]", "[k]")]:
+                 if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]", "[k]", "[l]")]:
         print(line, flush=True)
     kernels = []
     for kern in ops.KERNELS:
@@ -2821,7 +2998,8 @@ def main(parent: str | None = None) -> int:
                         "launches": (counts_infer[kern.name] + counts_train[kern.name]
                                      + counts_full[kern.name] + counts_serve[kern.name]
                                      + counts_eval[kern.name] + counts_data_train[kern.name]
-                                     + counts_multi[kern.name] + counts_deploy[kern.name]),
+                                     + counts_multi[kern.name] + counts_deploy[kern.name]
+                                     + counts_adapt[kern.name]),
                         **record[kern.name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -654,6 +654,48 @@ def test_bundle_exported_on_the_card_equals_the_live_estimator(cuda, tmp_path):
     assert counts["gt"] == counts["peaks"] == 0
 
 
+def test_bundle_exported_on_cuda0_runs_on_cuda1_as_on_cuda0(cuda, tmp_path):
+    """A bundle exported on cuda:0 and loaded on cuda:1: every program is
+    moved there (no node of its graphs names cuda:0), its kernels launch
+    there, and its tables equal those of the same bundle on cuda:0 bit for
+    bit. Skips below two cards."""
+    from tpupose_torch import ops
+    from tpupose_torch.deploy import load_bundle, save_bundle
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    _, est = _two_stage_estimator()
+    path = str(tmp_path / "card0.tppx")
+    manifest = save_bundle(path, est, [(368, 368)], max_batch=2)
+    assert manifest["device"] == "cuda:0"
+    on0, on1 = load_bundle(path, "cuda:0"), load_bundle(path, "cuda:1")
+    assert on1.device == torch.device("cuda:1")
+    for ep in on1._programs.values():
+        for gm in ep.graph_module.modules():
+            if isinstance(gm, torch.fx.GraphModule):
+                for node in gm.graph.nodes:
+                    named = [a for a in (*node.args, *node.kwargs.values())
+                             if isinstance(a, (torch.device, str)) and str(a).startswith("cuda")]
+                    assert all(str(a) == "cuda:1" for a in named), node.format_node()
+    imgs = np.random.default_rng(8).integers(0, 256, (2, 368, 368, 3)).astype(np.uint8)
+    valid = np.asarray([[368, 368], [300, 280]], np.int32)
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = on0.process_batch_async(imgs, valid_hw=valid)[1]
+        ops.reset_launch_counts()
+        n, got = on1.process_batch_async(imgs, valid_hw=valid)
+        torch.cuda.synchronize(1)
+        counts = ops.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for key in want:
+        assert got[key].device == torch.device("cuda:1"), key
+        assert torch.equal(got[key].cpu(), want[key].cpu()), key
+    assert sum(len(p) for p in on1._finish(n, got)) > 0
+    assert {k: counts[k] for k in ("block1", "pyramid_peaks", "sample", "assoc")} == \
+        {"block1": 2, "pyramid_peaks": 1, "sample": 1, "assoc": 1}
+
+
 def test_one_request_through_serve_on_the_card_equals_process(cuda):
     import http.client
     import json

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from tpupose_torch.config import InferenceConfig, ModelConfig, PoseConfig
-from tpupose_torch.deploy import FORMAT, load_bundle, save_bundle
+from tpupose_torch.deploy import FORMAT, load_bundle, retarget, save_bundle
 from tpupose_torch.infer import PoseEstimator
 from tpupose_torch.models import weights as weights_lib
 from tpupose_torch.testing import limit_threads
@@ -81,6 +81,7 @@ def bundle(est, tmp_path_factory):
     assert [tuple(b) for b in manifest["buckets"]] == [BUCKET]
     assert sorted(p["n"] for p in manifest["programs"]) == [1, 2, 4, 8]
     assert manifest["format"] == FORMAT and manifest["device_type"] == "cpu"
+    assert manifest["device"] == "cpu"
     assert manifest["torch_version"] == torch.__version__
     assert manifest["paf_readout"] == "scalespace" and manifest["num_stages"] == 1
     return path
@@ -187,6 +188,53 @@ def test_bundle_corruption_detected(bundle, tmp_path, case, match):
     _rewrite(bundle, bad, edit)
     with pytest.raises(ValueError, match=match):
         load_bundle(bad, device="cpu")
+
+
+@pytest.mark.parametrize("manifest, requested, moves", [
+    ({"device_type": "cuda", "device": "cuda:0"}, "cuda:0", {}),
+    ({"device_type": "cuda", "device": "cuda:0"}, "cuda:1",
+     {"cuda:0": "cuda:1", "cuda": "cuda:1"}),
+    ({"device_type": "cuda", "device": "cuda:3"}, "cuda:0",
+     {"cuda:3": "cuda:0", "cuda": "cuda:0"}),
+    # a manifest written before it named the device: cuda:0 or the CPU
+    ({"device_type": "cuda"}, "cuda:0", {}),
+    ({"device_type": "cuda"}, "cuda:1", {"cuda:0": "cuda:1", "cuda": "cuda:1"}),
+    ({"device_type": "cpu"}, "cpu", {}),
+    ({"device_type": "cpu", "device": "cpu"}, "cpu", {}),
+])
+def test_retarget_maps_the_export_device_onto_the_requested_one(manifest, requested, moves):
+    assert retarget(manifest, torch.device(requested)) == moves
+
+
+@pytest.mark.parametrize("manifest, requested, match", [
+    ({"device_type": "cuda", "device": "cuda:0"}, "cpu", "exported for 'cuda' devices; "
+     "cannot run them on cpu"),
+    ({"device_type": "cpu", "device": "cpu"}, "cuda:1", "exported for 'cpu' devices; "
+     "cannot run them on cuda:1"),
+    ({"device_type": "cuda"}, "cpu", "exported for 'cuda' devices"),
+    ({"device_type": "cuda", "device": "cpu"}, "cuda:0", "names device cpu for device type 'cuda'"),
+])
+def test_retarget_refuses_another_device_type(manifest, requested, match):
+    with pytest.raises(ValueError, match=match):
+        retarget(manifest, torch.device(requested))
+
+
+def test_bundle_without_a_device_entry_loads_as_before(est, bundle, tmp_path):
+    """A manifest without ``"device"`` reads as ``cpu`` here: it loads and
+    runs bit for bit as the bundle that names it."""
+    def drop_device(name, data):
+        if name != "manifest.json":
+            return data
+        manifest = json.loads(data)
+        del manifest["device"]
+        return json.dumps(manifest).encode()
+
+    old = str(tmp_path / "old.tppx")
+    _rewrite(bundle, old, drop_device)
+    dep = load_bundle(old, device="cpu")
+    assert "device" not in dep.manifest and dep.device == torch.device("cpu")
+    imgs = _batch(seed=5)
+    assert _same(dep.process_batch(imgs), est.process_batch(imgs)) > 0
 
 
 def test_bundle_fresh_process_no_model_code(est, bundle, tmp_path):

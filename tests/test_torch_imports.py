@@ -5,7 +5,8 @@ numpy-only modules (config, topology, drawing, config_io, models/caffe,
 the data path's coco_eval, coco_prep, hdf5, tpr, pipeline, pack_tpr and
 the C sources of its host libraries, parallel/'s pad_batch and
 grain_pipeline's Hdf5Source and PadForBatch, and deploy's bundle helpers)
-cannot drift from them.
+cannot drift from them (the synthetic dataset's copies are held in
+tests/test_torch_synthetic.py).
 """
 
 import ast
@@ -56,7 +57,8 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
     assert len(files) > 30 and any(f.endswith("training/loop.py") for f in files)
     assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py", "serve.py", "cli.py",
             "config_io.py", "caffe.py", "coco_eval.py", "coco_prep.py", "hdf5.py", "tpr.py",
-            "rle.py", "pack_tpr.py", "grain_pipeline.py", "deploy.py"} <= \
+            "rle.py", "pack_tpr.py", "grain_pipeline.py", "deploy.py",
+            "make_synthetic_dataset.py", "walkthrough.py"} <= \
         {os.path.basename(f) for f in files}
     assert {f"tpupose_torch/parallel/{m}.py" for m in
             ("__init__", "distributed", "sharding", "inference", "pyramid", "spatial")} <= \
@@ -80,6 +82,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import tpupose_torch.parallel\n"
         "from tpupose_torch.parallel import distributed, inference, pyramid, sharding, spatial\n"
         "import tpupose_torch.deploy\n"
+        "from tpupose_torch.data import make_synthetic_dataset\n"
+        "from tpupose_torch.examples import walkthrough\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print('LOADED', bad)\n"
         "print('OPTIONAL', sorted(m for m in sys.modules if m in ('h5py', 'cv2')))\n"

@@ -35,8 +35,10 @@ operands and the bundle's tables equal the live estimator's bit for bit.
 Loading needs the port's operator registrations (``tpupose_torch.ops``)
 and the decode's ``to_people``, never the model's code
 (``tpupose_torch.models``) nor ``tpupose_torch.infer``. A program names
-the device type it was traced on (and its index: a bundle exported on
-``cuda:0`` runs there); a bundle is refused on another device type.
+the device it was traced on, index included (``torch.export`` writes it
+into the graph's factory calls), and the manifest records it as
+``"device"``. ``load_bundle`` refuses another device type and retargets
+the programs to another index of the same type (``retarget``).
 """
 
 from __future__ import annotations
@@ -189,6 +191,33 @@ def export_program(estimator, n: int, h: int, w: int,
     return buf.getvalue()
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` with its index: a CUDA device without one is the current."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def retarget(manifest: dict, device: torch.device) -> dict[str, str]:
+    """The device map that moves a bundle's programs onto ``device`` (an
+    indexed device): ``{}`` where they were exported on it, else the map
+    that ``torch.export.passes.move_to_device_pass`` applies to every
+    program. A bundle written before the manifest held ``"device"`` was
+    exported on ``cuda:0`` or ``cpu``. Raises ``ValueError`` for another
+    device type than the export's."""
+    kind = manifest.get("device_type")
+    if kind != device.type:
+        raise ValueError(f"the programs were exported for {kind!r} devices; "
+                         f"cannot run them on {device}")
+    exported = torch.device(manifest.get("device", "cuda:0" if kind == "cuda" else "cpu"))
+    if exported.type != kind:
+        raise ValueError(f"the manifest names device {exported} for device type {kind!r}")
+    if exported == device:
+        return {}
+    # "cuda" without an index would be the current device at run time
+    return {str(exported): str(device), exported.type: str(device)}
+
+
 def save_bundle(path: str, estimator,
                 buckets: Iterable[tuple[int, int]],
                 max_batch: int = 8,
@@ -231,6 +260,7 @@ def save_bundle(path: str, estimator,
         "format": FORMAT,
         "torch_version": torch.__version__,
         "device_type": estimator.device.type,
+        "device": str(_indexed(estimator.device)),
         "scales": list(scales_t),
         "buckets": [list(b) for b in buckets],
         "max_batch": int(max_batch),
@@ -382,14 +412,21 @@ def load_bundle(path: str, device: str | torch.device = "cuda") -> DeployedEstim
     another format (the reference's ``tppx-v1`` among them) and a bundle
     exported for another device type, and deserializes each program with
     ``torch.export.load``; where that fails under another torch than the
-    exporting one, the error names both versions. Like the live
-    estimator, turns TF32 off for cuDNN convolutions and CUDA matmuls.
+    exporting one, the error names both versions. ``device`` without an
+    index is the current CUDA device; a program exported on another index
+    of its type (``cuda:0`` for a bundle whose manifest names no
+    ``"device"``) is moved onto ``device`` by
+    ``torch.export.passes.move_to_device_pass`` (``retarget``), never
+    refused. Like the live estimator, turns TF32 off for cuDNN
+    convolutions and CUDA matmuls.
     """
     import tpupose_torch.ops  # noqa: F401  (the programs' operators, resolved by name)
+    from torch.export.passes import move_to_device_pass
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("load_bundle(device='cuda'): no CUDA device is available")
+    device = _indexed(device)
     with zipfile.ZipFile(path) as zf:
         manifest = json.loads(zf.read(_MANIFEST))
         if manifest.get("format") != FORMAT:
@@ -397,11 +434,10 @@ def load_bundle(path: str, device: str | torch.device = "cuda") -> DeployedEstim
                 f"{path}: unsupported bundle format "
                 f"{manifest.get('format')!r} (expected {FORMAT})"
             )
-        if manifest.get("device_type") != device.type:
-            raise ValueError(
-                f"{path}: the programs were exported for {manifest.get('device_type')!r} "
-                f"devices; cannot run them on {device}"
-            )
+        try:
+            moves = retarget(manifest, device)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
         wbytes = zf.read(_WEIGHTS)
         if hashlib.sha256(wbytes).hexdigest() != manifest["weights_sha256"]:
             raise ValueError(f"{path}: weights corrupted (sha256 mismatch)")
@@ -415,7 +451,7 @@ def load_bundle(path: str, device: str | torch.device = "cuda") -> DeployedEstim
                     f"{path}: program {p['file']} corrupted (sha256 mismatch)"
                 )
             try:
-                programs[(p["n"], p["h"], p["w"])] = torch.export.load(io.BytesIO(blob))
+                ep = torch.export.load(io.BytesIO(blob))
             except Exception as e:
                 exported = manifest.get("torch_version")
                 if exported != torch.__version__:
@@ -424,6 +460,7 @@ def load_bundle(path: str, device: str | torch.device = "cuda") -> DeployedEstim
                         f"and does not load with torch {torch.__version__}: {e}"
                     ) from e
                 raise
+            programs[(p["n"], p["h"], p["w"])] = move_to_device_pass(ep, moves) if moves else ep
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return DeployedEstimator(manifest, params, programs, device)
