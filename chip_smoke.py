@@ -10,10 +10,10 @@ in turns (parent, change, change, parent; the parent's in a process of
 its own), and their times enter the kernels' record as ``prev_ms``. The
 outputs of pyramid_peaks, peaks, assoc (on random and on crowded tables)
 and gt on the same saved inputs must equal the parent's bit for bit.
-assoc and gt, redesigned in this checkout, must be faster than the
-parent's; pyramid_peaks and peaks, where their source differs from the
-parent's, at most 5 % slower; block1 and sample are shown. Last, after
-phase k, the estimator of each checkout runs phase e's 4-scale batch of 8
+assoc and gt must be faster than the parent's where their source differs
+from it (a redesign) and at most 5 % slower where it does not; pyramid_peaks
+and peaks, where their source differs, at most 5 % slower; block1 and sample
+are shown. Last, after phase m, the estimator of each checkout runs phase e's 4-scale batch of 8
 and batch-1 latency in a process of its own, in turns (parent, change,
 change, parent): the change's images/s at least 0.95 and its latency at
 most 1.2 times the parent's.
@@ -214,8 +214,22 @@ exits non-zero):
      and valid equal, people equal in coordinates and parts, scores within
      1e-5, gt, peaks and assoc launched once each and nothing else, five
      panels. Its seconds are printed.
+  m. the benchmark (after phase l): `python -m tpupose_torch.cli bench` in
+     a process of its own (host-bound figures read worse late in a long
+     process), at the reference's constants (4 scales at batch 8, scale
+     1.0 at batch 16, batch-1 latency, train batch 16, 96 feed records),
+     its baseline measured on this host's CPU into
+     tpupose_torch/_build/bench_baseline.json unless that file is there.
+     Its last stdout line must hold every key of the reference's line and
+     "card" (this card's name and power limit), a positive value and rates,
+     min <= median <= max in both runs objects, 2.039 TFLOP per 4-scale
+     image, and each MFU equal to its rate times its FLOPs over 989e12 to
+     the printed rounding, in (0, 100]; its launches (on stderr) block1,
+     pyramid_peaks, sample, assoc and gt at least once each and peaks
+     never. The headline, single-scale, on-device, latency, train and feed
+     figures, the baseline, and the child's seconds are printed.
 
-The phase e, f, h, i, j, k and l lines are printed once more at the end; the last three
+The phase e, f, h, i, j, k, l and m lines are printed once more at the end; the last three
 lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero before
@@ -1936,6 +1950,87 @@ def _adaptation_phase(torch, np, params, card: str) -> dict:
     return counts
 
 
+def _bench_phase(card: str) -> dict:
+    """Phase m: the benchmark command in a process of its own, its JSON line
+    checked and shown. Returns the child's kernel launches."""
+    from tpupose_torch import benchmark
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.utils import flops
+
+    cached = os.path.exists(benchmark.DEFAULT_BASELINE_CACHE)
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "tpupose_torch.cli", "bench"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise RuntimeError(f"bench exited {done.returncode}:\n{done.stderr[-3000:]}")
+    line = json.loads(done.stdout.strip().splitlines()[-1])
+    launches = json.loads(done.stderr.split("bench: kernel launches ")[1].splitlines()[0])
+    runs = ("headline_runs", "single_scale_runs")
+    nested = {**{k: ("median", "min", "max") for k in runs},
+              **{k: ("wall_p50_ms", "wall_p99_ms", "device_mean_ms")
+                 for k in ("latency_single_scale_ms", "latency_4scale_ms")}}
+    missing = [k for k in benchmark.LINE_KEYS if k not in line]
+    missing += [f"{k}.{sub}" for k, subs in nested.items() for sub in subs
+                if sub not in line.get(k, {})]
+    if missing:
+        raise AssertionError(f"bench: keys missing from its line: {missing}")
+    positive = {k: line[k] for k in (
+        "value", "vs_baseline", "single_scale_ips_wall", "single_scale_ips_on_device",
+        "pyramid_ips_on_device", "single_scale_vs_baseline", "train_samples_per_s",
+        "train_samples_per_s_min", "train_samples_per_s_max", "feed_native_tpr_rps")}
+    positive.update({f"{k}.{sub}": line[k][sub] for k, subs in nested.items() for sub in subs})
+    bad = [k for k, v in positive.items() if not v > 0]
+    bad += [k for k in runs if not line[k]["min"] <= line[k]["median"] <= line[k]["max"]]
+    if line["model_tflops_per_image_4scale"] != 2.039:
+        bad.append("model_tflops_per_image_4scale")
+    fl4 = flops.pyramid_flops(368, 368, DEFAULT.inference.scale_search)
+    fl1 = flops.forward_flops(368, 368)
+    for key, rate, fl, (mfu_unit, rate_unit) in (
+            ("mfu_4scale_wall_pct", "value", fl4, (0.01, 0.001)),
+            ("mfu_4scale_on_device_pct", "pyramid_ips_on_device", fl4, (0.01, 0.001)),
+            ("mfu_single_scale_wall_pct", "single_scale_ips_wall", fl1, (0.01, 0.001)),
+            ("mfu_single_scale_on_device_pct", "single_scale_ips_on_device", fl1,
+             (0.01, 0.001)),
+            ("train_mfu_pct", "train_samples_per_s", 3 * fl1, (0.1, 0.1))):
+        # to the printed rounding: half a unit of the MFU's last place, and
+        # what half a unit of the rate's last place moves it
+        tol = mfu_unit / 2 + 100.0 * rate_unit / 2 * fl / BF16_FLOPS + 1e-9
+        want = 100.0 * line[rate] * fl / BF16_FLOPS
+        if not (0 < line[key] <= 100 and abs(line[key] - want) <= tol):
+            bad.append(key)
+    if line["card"] != card:
+        bad.append("card")
+    unlaunched = [k for k in ("block1", "pyramid_peaks", "sample", "assoc", "gt")
+                  if not launches[k]]
+    if bad or unlaunched or launches["peaks"]:
+        raise AssertionError(f"bench: wrong figures {bad}, kernels not launched {unlaunched}, "
+                             f"launches {launches}; its line: {line}")
+    with open(benchmark.DEFAULT_BASELINE_CACHE) as f:
+        base = json.load(f)
+    measured = "measuring the reference pipeline's latency" in done.stderr
+    _say("m", f"`python -m tpupose_torch.cli bench` in a process of its own, {child_s:.1f} s: "
+              f"4 scales, batch 8 {line['value']} images/s (runs {line['headline_runs']}), "
+              f"on the device {line['pyramid_ips_on_device']}; scale 1.0, batch 16 "
+              f"{line['single_scale_ips_wall']} (runs {line['single_scale_runs']}), on the device "
+              f"{line['single_scale_ips_on_device']}; batch-1 latency ms, scale 1.0 "
+              f"{line['latency_single_scale_ms']}, 4 scales {line['latency_4scale_ms']}; train "
+              f"batch {line['train_batch']}: {line['train_samples_per_s']} samples/s (min "
+              f"{line['train_samples_per_s_min']}, max {line['train_samples_per_s_max']}), "
+              f"{line['train_step_ms']} ms a step; feed .tpr {line['feed_native_tpr_rps']} "
+              f"records/s, HDF5 {line['feed_hdf5_lzf_rps']}; MFU % 4 scales wall / device "
+              f"{line['mfu_4scale_wall_pct']} / {line['mfu_4scale_on_device_pct']}, scale 1.0 "
+              f"{line['mfu_single_scale_wall_pct']} / {line['mfu_single_scale_on_device_pct']}, "
+              f"train {line['train_mfu_pct']}; vs_baseline {line['vs_baseline']} (scale 1.0 "
+              f"{line['single_scale_vs_baseline']}) over this host's CPU, 4 scales "
+              f"{base['reference_cpu_latency_4scale_s']:.3f} s / scale 1.0 "
+              f"{base['reference_cpu_latency_s']:.3f} s an image, "
+              f"{'measured in this run' if measured else 'read from the cache'} "
+              f"(cache there before: {cached}); keys, rates, runs, 2.039 TFLOP, MFU: pass; "
+              f"launches {launches}; card {line['card']}")
+    return launches
+
+
 def main(parent: str | None = None) -> int:
     import dataclasses
     import gc
@@ -2584,10 +2679,13 @@ def main(parent: str | None = None) -> int:
         _say("e", "outputs on the saved inputs, elements whose bits differ from the parent's "
                   "first run (change, change, parent): "
                   + ", ".join(f"{name} {d}" for name, d in diff.items()))
-        # redesigned here: faster than the parent's; only repaired (source
-        # changed): bit-equal to it and at most 5 % slower
+        # assoc and gt (the last kernels redesigned), where their source
+        # differs from the parent's: faster than it; where it does not: at
+        # most 5 % slower, the rule of a changed pyramid_peaks or peaks
+        # (outputs bit-equal below)
         slower = [key for key, name in (("assoc_random", "assoc"), ("assoc_crowded", "assoc"),
-                                        ("gt", "gt")) if now[key] >= was[key]]
+                                        ("gt", "gt"))
+                  if now[key] >= was[key] and (name in changed or now[key] > 1.05 * was[key])]
         slower += [name for name in ("pyramid_peaks", "peaks")
                    if name in changed and now[name] > 1.05 * was[name]]
         unequal = [name for name, d in diff.items() if any(d)]
@@ -2981,6 +3079,10 @@ def main(parent: str | None = None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts_adapt = _adaptation_phase(torch, np, k_params, card)
+    # --- m. the benchmark, in a process of its own ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_bench = _bench_phase(card)
     if parent is not None:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2989,7 +3091,7 @@ def main(parent: str | None = None) -> int:
     print("the timings and the training path once more, for a reader of the last lines:",
           flush=True)
     for line in [line for line in _SAID
-                 if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]", "[k]", "[l]")]:
+                 if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]", "[k]", "[l]", "[m]")]:
         print(line, flush=True)
     kernels = []
     for kern in ops.KERNELS:
@@ -2999,7 +3101,7 @@ def main(parent: str | None = None) -> int:
                                      + counts_full[kern.name] + counts_serve[kern.name]
                                      + counts_eval[kern.name] + counts_data_train[kern.name]
                                      + counts_multi[kern.name] + counts_deploy[kern.name]
-                                     + counts_adapt[kern.name]),
+                                     + counts_adapt[kern.name] + counts_bench[kern.name]),
                         **record[kern.name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

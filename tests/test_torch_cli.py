@@ -102,13 +102,16 @@ def _people(stdout: str) -> list:
 
 def test_help_lists_exactly_the_four_commands(capsys):
     """The commands whose modules the port holds: the four of the serving
-    path, since the data path prepare, train, finetune and eval, and since
-    the deployment slice export-program."""
+    path, since the data path prepare, train, finetune and eval, since the
+    deployment slice export-program, and since the benchmark slice bench:
+    the reference CLI's commands, in its order."""
     rc, out, _ = _run(tcli, ["--help"], capsys)
     assert rc == 0
     usage = out[out.index("{"):out.index("}") + 1]
     assert usage == ("{demo-image,demo-video,prepare,train,finetune,eval,convert-weights,"
-                     "export-weights,export-program}")
+                     "export-weights,export-program,bench}")
+    rc, out, _ = _run(jcli, ["--help"], capsys)
+    assert rc == 0 and out[out.index("{"):out.index("}") + 1] == usage
 
 
 def test_demo_image_prints_the_reference_cli_people(files, f32_defaults, monkeypatch, capsys,

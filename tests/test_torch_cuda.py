@@ -871,3 +871,28 @@ def test_paths_with_a_mesh_entry_on_every_card_launch_on_each_card(cuda):
             assert a.device == cards[0] and ((a - b).norm() / b.norm()).item() <= 1e-6
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+# --- the benchmark ------------------------------------------------------------------------------
+
+
+def test_bench_device_rate_and_latency_launch_the_inference_kernels(cuda):
+    """``benchmark._measure_on_device`` and ``_measure_latency`` on a
+    full-width estimator (VGG19 + 6 stages, 4 scales): positive rates and
+    times, and block1, pyramid_peaks, sample and assoc launched, gt and
+    peaks not."""
+    from tpupose_torch import benchmark, ops
+    from tpupose_torch.infer import PoseEstimator
+
+    image, _, _ = benchmark.synthetic_scene(368, cuda)
+    est = PoseEstimator(seed=0, device=cuda)
+    ops.reset_launch_counts()
+    ips = benchmark._measure_on_device(est, np.stack([image] * 8), None, iters=2)
+    lat = benchmark._measure_latency(est, image, (1.0,), iters=3)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert ips > 0 and set(lat) == {"wall_p50_ms", "wall_p99_ms", "device_mean_ms"}
+    assert 0 < lat["wall_p50_ms"] <= lat["wall_p99_ms"] and lat["device_mean_ms"] > 0
+    # 3 program calls at 4 scales, then 1 + 3 + 1 + 3 at scale 1.0
+    assert counts == {"block1": 3 * 4 + 8, "pyramid_peaks": 11, "sample": 11, "assoc": 11,
+                      "gt": 0, "peaks": 0}, counts

@@ -4,9 +4,9 @@ loads neither h5py nor cv2, and its own copies of the reference's
 numpy-only modules (config, topology, drawing, config_io, models/caffe,
 the data path's coco_eval, coco_prep, hdf5, tpr, pipeline, pack_tpr and
 the C sources of its host libraries, parallel/'s pad_batch and
-grain_pipeline's Hdf5Source and PadForBatch, and deploy's bundle helpers)
-cannot drift from them (the synthetic dataset's copies are held in
-tests/test_torch_synthetic.py).
+grain_pipeline's Hdf5Source and PadForBatch, deploy's bundle helpers, and
+utils/flops.py but for its peak) cannot drift from them (the synthetic
+dataset's copies are held in tests/test_torch_synthetic.py).
 """
 
 import ast
@@ -58,7 +58,7 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
     assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py", "serve.py", "cli.py",
             "config_io.py", "caffe.py", "coco_eval.py", "coco_prep.py", "hdf5.py", "tpr.py",
             "rle.py", "pack_tpr.py", "grain_pipeline.py", "deploy.py",
-            "make_synthetic_dataset.py", "walkthrough.py"} <= \
+            "make_synthetic_dataset.py", "walkthrough.py", "benchmark.py", "flops.py"} <= \
         {os.path.basename(f) for f in files}
     assert {f"tpupose_torch/parallel/{m}.py" for m in
             ("__init__", "distributed", "sharding", "inference", "pyramid", "spatial")} <= \
@@ -84,6 +84,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import tpupose_torch.deploy\n"
         "from tpupose_torch.data import make_synthetic_dataset\n"
         "from tpupose_torch.examples import walkthrough\n"
+        "import tpupose_torch.benchmark, tpupose_torch.utils.flops\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print('LOADED', bad)\n"
         "print('OPTIONAL', sorted(m for m in sys.modules if m in ('h5py', 'cv2')))\n"
@@ -363,3 +364,17 @@ def test_deploy_helpers_equal_the_reference():
             jdeploy._flatten_params(bad)
         assert str(t_err.value).split(";")[0] == str(j_err.value).split(";")[0]
     assert tdeploy._pow2_sizes(5) == jdeploy._pow2_sizes(5) == [1, 2, 4, 8]
+
+
+def test_flops_copy_is_the_reference_code_but_for_the_peak():
+    """``utils/flops.py``: the reference's functions, code for code; of its
+    constants only the peak differs (the H100 SXM's dense bf16 rate)."""
+    import tpupose.utils.flops as jflops
+    import tpupose_torch.utils.flops as tflops
+
+    names = ["_conv", "forward_flops", "pyramid_flops"]
+    assert _code("tpupose_torch/utils/flops.py", names) == _code("tpupose/utils/flops.py", names)
+    t, j = public_values(tflops), public_values(jflops)
+    assert set(t) == set(j)
+    assert {k for k in j if t[k] != j[k]} == {"PEAK_BF16_FLOPS"}
+    assert tflops.PEAK_BF16_FLOPS == 989e12

@@ -16,6 +16,7 @@ holds:
   export-weights   the port's checkpoint -> reference-format Keras .h5
   export-program   the serving programs + weights -> one .tppx bundle
                    (``deploy.py``; ``serve --program`` loads it)
+  bench            the headline benchmark (``benchmark.py``): one JSON line
 
 Every command that runs a model runs it on the card (``--device cuda``,
 the default) unless ``--device cpu`` is given. Reading images and video
@@ -606,6 +607,13 @@ def cmd_export_program(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from tpupose_torch import benchmark
+
+    benchmark.main(baseline_cache=args.baseline_cache, device=args.device)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tpupose-torch", description=__doc__)
     sub = parser.add_subparsers(dest="command", required=True)
@@ -733,6 +741,15 @@ def main(argv=None) -> int:
                         "up to this are included)")
     _add_common_model_args(p)
     p.set_defaults(fn=cmd_export_program)
+
+    p = sub.add_parser("bench", help="headline throughput benchmark")
+    p.add_argument("--device", default="cuda",
+                   help="where the benchmark runs: cuda (default) or cpu")
+    p.add_argument("--baseline-cache", default=None, metavar="JSON",
+                   help="the CPU baseline's cache (default: "
+                        "tpupose_torch/_build/bench_baseline.json; measured "
+                        "there when missing)")
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.fn(args)
