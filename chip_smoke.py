@@ -229,7 +229,33 @@ exits non-zero):
      never. The headline, single-scale, on-device, latency, train and feed
      figures, the baseline, and the child's seconds are printed.
 
-The phase e, f, h, i, j, k, l and m lines are printed once more at the end; the last three
+  n. the card against the numpy oracles (after phase m): the network at
+     full width (VGG19 + 6 stages, seeded weights through the flax-layout
+     bridge) on one normalised 368x368 image against
+     reference_impl.model_np.forward_np on the host: in f32 with TF32 off
+     every stage's PAF and heat within 1e-4 of the output's scale; in bf16
+     (block1 launched once) the last stage within rtol 0.1 and atol 0.05
+     times the output's scale (the bf16 contract of the port's CPU tests,
+     its atol taken relative: the seeded outputs are of order 1e-3); the gt
+     kernel at batch 10, 24 persons, with a miss mask, against
+     gt_np.create_heatmaps_np in f64 within 1e-5; the augmentation warp on
+     the card, twopass (the config's default) and exact, 4 images of
+     480x640 to 368x368 (uint8-valued noise), against
+     warp_image_twopass_np / warp_image_np given the same f32 affines
+     within 255 x 4 f32 ulps of 640 px (0.0623: the card inverts the affine
+     in f32, the twins in f64; the port's CPU test's 2e-2 is for inverses
+     one ulp apart), and
+     transform_joints against transform_joints_np (rtol 1e-5, atol 1e-4,
+     visibility equal away from the edges); utils.profiling: trace() around
+     two 4-scale process_batch calls at batch 8 in annotate regions writes
+     one trace file that names the block1, pyramid_peaks, sample and assoc
+     kernels and both regions, and time_fn's figures of that batch beside
+     the card; utils.compile_cache: a fresh process with
+     TPUPOSE_COMPILE_CACHE=<tmp> launching gt builds it once into <tmp>
+     (tpupose_torch/_build unchanged), a second loads it with no compiler
+     run (builds counted by data._native.builds). Its seconds are printed.
+
+The phase e, f, h, i, j, k, l, m and n lines are printed once more at the end; the last three
 lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero before
@@ -241,6 +267,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2031,6 +2058,282 @@ def _bench_phase(card: str) -> dict:
     return launches
 
 
+ORACLE_SIZE = 368             # the network's input against forward_np (see phase n)
+# the __global__ functions of each inference kernel, as a trace names them
+TRACED_KERNELS = {"block1": ("block1_kernel",), "pyramid_peaks": ("pyramid_peaks_kernel",),
+                  "sample": ("sample_staged_kernel", "sample_direct_kernel"),
+                  "assoc": ("assoc_kernel",)}
+
+
+def _cache_child(cache: str) -> dict:
+    """Phase n's fresh process: with TPUPOSE_COMPILE_CACHE=``cache``, launch
+    the gt kernel once and report where its library came from and how many
+    compiler runs the process made."""
+    env = {**os.environ, "TPUPOSE_COMPILE_CACHE": cache}
+    code = (
+        "import json, sys, time\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "t0 = time.perf_counter()\n"
+        "import torch\n"
+        "import tpupose_torch\n"
+        "from tpupose_torch.data import _native\n"
+        "from tpupose_torch.ops import gt\n"
+        "joints = torch.full((1, 1, 18, 3), 100.0, device='cuda')\n"
+        "joints[..., 2] = 0.0\n"
+        "paf, heat = gt.create_labels(joints, torch.ones((1, 46, 46), device='cuda'))\n"
+        "torch.cuda.synchronize()\n"
+        "print(json.dumps({'lib': gt.KERNEL._handle._name, 'builds': _native.builds,\n"
+        "                  'build_dir': _native.BUILD_DIR, 'launches': gt.KERNEL.launches,\n"
+        "                  'heat_max': float(heat[..., :18].max()),\n"
+        "                  's': time.perf_counter() - t0}))\n"
+    )
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    if done.returncode != 0:
+        raise RuntimeError(f"the compile-cache child exited {done.returncode}:\n"
+                           f"{done.stderr[-3000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def _oracle_phase(torch, np, card: str) -> dict:
+    """Phase n: the card's network, gt kernel and augmentation warp against
+    the numpy oracles (``reference_impl.model_np``, ``gt_np``), the trace
+    harness (``utils.profiling``) around the inference path, and the build
+    cache (``utils.compile_cache``) in two fresh processes. Returns the
+    launches of the network, the gt kernel and the traced and timed batches."""
+    import glob
+    import shutil
+    import tempfile
+
+    from tpupose_torch import ops
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.data import _native
+    from tpupose_torch.gt import augment as gt_augment
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.models import OpenPose, weights
+    from tpupose_torch.ops import gt as gt_mod
+    from tpupose_torch.reference_impl import gt_np, model_np
+    from tpupose_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    counts = {k.name: 0 for k in ops.KERNELS}
+
+    def add(launched: dict) -> None:
+        for key, v in launched.items():
+            counts[key] += v
+
+    # 1. the full-width network (VGG19 + 6 stages) against forward_np
+    seeded = OpenPose(num_stages=6, dtype=torch.float32)
+    seeded.reset_parameters(torch.Generator().manual_seed(0))
+    tree = weights.to_flax(seeded.state_dict())
+    del seeded
+    size = ORACLE_SIZE
+    img = (rng.integers(0, 256, (size, size, 3)) / 256.0 - 0.5).astype(np.float32)
+    t0 = time.perf_counter()
+    want = model_np.forward_np(tree, img)
+    np_s = time.perf_counter() - t0
+    x = torch.from_numpy(img)[None].to(dev)
+    nets = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        net = OpenPose(num_stages=6, dtype=dtype, pallas_block1=True)
+        net.load_state_dict(weights.from_flax(tree))
+        nets[name] = net.to(dev, memory_format=torch.channels_last).eval()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got32 = nets["f32"](x)
+        torch.cuda.synchronize()
+        if ops.launch_counts()["block1"]:
+            raise AssertionError("the f32 network launched block1 (a bf16 kernel)")
+        got16 = nets["bf16"](x)
+        torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    if launched != {**{k: 0 for k in launched}, "block1": 1}:
+        raise AssertionError(f"the bf16 network's launches {launched}, want block1 once")
+    add(launched)
+    f32_err = 0.0
+    for stage, ((gp, gh), (wp, wh)) in enumerate(zip(got32, want)):
+        for what, g, w in (("paf", gp, wp), ("heat", gh, wh)):
+            g = g[0].cpu().numpy()
+            err = float(np.abs(g - w).max()) / float(np.abs(w).max())
+            if g.shape != w.shape or not err <= 1e-4:
+                raise AssertionError(f"f32 network, stage {stage + 1} {what}: {g.shape} vs "
+                                     f"{w.shape}, max error {err:.3e} of the output's scale")
+            f32_err = max(f32_err, err)
+    bf16_err = 0.0
+    for what, g, w in (("paf", got16[-1][0], want[-1][0]), ("heat", got16[-1][1], want[-1][1])):
+        g = g[0].float().cpu().numpy()
+        scale = float(np.abs(w).max())
+        over = np.abs(g - w) - (0.05 * scale + 0.1 * np.abs(w))
+        if g.shape != w.shape or not (over <= 0).all():
+            raise AssertionError(f"bf16 network, last stage {what}: {int((over > 0).sum())} "
+                                 f"elements outside rtol 0.1, atol 0.05 x {scale:.3e}")
+        bf16_err = max(bf16_err, float(np.abs(g - w).max()) / scale)
+    scale_last = float(np.abs(want[-1][1]).max())
+    del nets, got32, got16, x
+    torch.cuda.empty_cache()
+    _say("n", f"the network at full width (VGG19 + 6 stages, seeded weights through the "
+              f"flax-layout bridge), one normalised {size}x{size} image, against "
+              f"model_np.forward_np ({np_s:.1f} s on the host): f32 (TF32 off) every stage's "
+              f"PAF and heat within {f32_err:.3e} of the output's scale (<= 1e-4): pass; bf16 "
+              f"(block1 launched once) last stage within rtol 0.1, atol 0.05 x its scale "
+              f"({scale_last:.3e}), max error {bf16_err:.3e} of it: pass")
+
+    # 2. the gt kernel against create_heatmaps_np (f64)
+    n_b, n_p = 10, 24
+    joints = np.full((n_b, n_p, 18, 3), 2.0, np.float32)
+    k = n_p - 4
+    joints[:, :k, :, 0] = rng.uniform(-10, 378, (n_b, k, 18))
+    joints[:, :k, :, 1] = rng.uniform(-10, 378, (n_b, k, 18))
+    joints[:, :k, :, 2] = rng.choice([0.0, 1.0, 2.0], (n_b, k, 18), p=[0.6, 0.2, 0.2])
+    joints[:, 1] = joints[:, 0] + np.asarray([3.0, -2.0, 0.0], np.float32)
+    mask = (rng.uniform(size=(n_b, 46, 46)) > 0.1).astype(np.float32)     # a miss mask
+    mask[0] = rng.uniform(size=(46, 46)).astype(np.float32)
+    ops.reset_launch_counts()
+    paf, heat = gt_mod.create_labels(torch.from_numpy(joints).to(dev),
+                                     torch.from_numpy(mask).to(dev))
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    if launched != {**{k: 0 for k in launched}, "gt": 1}:
+        raise AssertionError(f"create_labels launches {launched}, want gt once")
+    add(launched)
+    labels = torch.cat([paf, heat], -1).cpu().numpy().astype(np.float64)
+    gt_err = max(float(np.abs(labels[i] - gt_np.create_heatmaps_np(
+        joints[i].astype(np.float64), mask[i].astype(np.float64))).max()) for i in range(n_b))
+    if not gt_err <= 1e-5:
+        raise AssertionError(f"gt kernel against create_heatmaps_np: max error {gt_err:.3e}")
+    _say("n", f"gt kernel, batch {n_b}, {n_p} persons, a miss mask, 46x46: max error "
+              f"{gt_err:.3e} against gt_np.create_heatmaps_np in f64 (<= 1e-5): pass; "
+              f"{int((labels[..., 38:56] > 0).sum())} heat > 0, "
+              f"{int((labels[..., :38] != 0).sum())} PAF != 0")
+
+    # 3. the augmentation warp and the joints' transform against their numpy twins
+    n_w, src_h, src_w, out = 4, 480, 640, DEFAULT.model.boxsize
+    images = rng.integers(0, 256, (n_w, src_h, src_w, 3)).astype(np.float32)
+    flips = [False, True, True, False]
+    affines = np.stack([gt_np.affine_matrix_np(
+        (rng.uniform(200, 440), rng.uniform(160, 320)), rng.uniform(0.5, 1.1) * 0.8,
+        rng.uniform(-40, 40), flips[i], out, tuple(rng.uniform(-40, 40, 2)))
+        for i in range(n_w)]).astype(np.float32)
+    src = torch.from_numpy(images).to(dev)
+    aff = torch.from_numpy(affines).to(dev)
+    # the card inverts the affine in f32, the twins in f64: a source coordinate
+    # may move by a few f32 ulps of the largest coordinate, and a grey level
+    # by up to 255 times that on noise (a wrong tap or half-pixel convention
+    # moves it by tens)
+    warp_tol = 255.0 * 4 * float(np.spacing(np.float32(max(src_h, src_w))))
+    warp_err = {}
+    for method, card_fn, np_fn in (
+            ("twopass", gt_augment.warp_image_twopass, gt_np.warp_image_twopass_np),
+            ("exact", gt_augment.warp_image, gt_np.warp_image_np)):
+        got = card_fn(src, aff, out, 128.0).cpu().numpy()
+        err = max(float(np.abs(got[i] - np_fn(images[i], affines[i].astype(np.float64), out,
+                                               128.0)).max()) for i in range(n_w))
+        border = float((np.abs(got - 128.0) < 1e-6).mean())
+        if got.shape != (n_w, out, out, 3) or not err <= warp_tol or not border < 0.9:
+            raise AssertionError(f"warp {method} against its numpy twin: max error {err:.3e}, "
+                                 f"border share {border:.2f}")
+        warp_err[method] = err
+    if DEFAULT.augment.warp_method != "twopass":
+        raise AssertionError(f"the config's default warp is {DEFAULT.augment.warp_method!r}")
+    jts = np.concatenate([rng.uniform(0, src_w, (n_w, n_p, 18, 1)),
+                          rng.uniform(0, src_h, (n_w, n_p, 18, 1)),
+                          rng.choice([0.0, 1.0, 2.0], (n_w, n_p, 18, 1))], -1).astype(np.float32)
+    moved = gt_augment.transform_joints(torch.from_numpy(jts).to(dev), aff,
+                                        torch.tensor(flips, device=dev), out).cpu().numpy()
+    twin = np.stack([gt_np.transform_joints_np(jts[i].astype(np.float64),
+                                               affines[i].astype(np.float64), flips[i], out)
+                     for i in range(n_w)])
+    xy_err = float(np.abs(moved[..., :2] - twin[..., :2]).max())
+    near = ((np.abs(twin[..., :2]) < 1e-3) | (np.abs(twin[..., :2] - out) < 1e-3)).any(-1)
+    if not (np.allclose(moved[..., :2], twin[..., :2], rtol=1e-5, atol=1e-4)
+            and (moved[..., 2] == twin[..., 2])[~near].all()):
+        raise AssertionError(f"transform_joints against its numpy twin: xy error {xy_err:.3e}")
+    _say("n", f"augmentation warp on the card, {n_w} images {src_h}x{src_w} -> {out}x{out} "
+              f"(uint8-valued noise, rotations to 40 degrees, flips): twopass (the config's "
+              f"default) {warp_err['twopass']:.3e}, exact {warp_err['exact']:.3e} from "
+              f"warp_image_twopass_np / warp_image_np given the same f32 affine (<= "
+              f"{warp_tol:.4f}: 255 x 4 f32 ulps of {max(src_h, src_w)} px, the inverse taken "
+              f"in f32 on the card and in f64 by the twins): pass; transform_joints {n_w}x{n_p} persons: xy within {xy_err:.2e} (rtol 1e-5, "
+              f"atol 1e-4), visibility equal ({int(near.sum())} joints within 1e-3 of an edge "
+              f"left out): pass")
+
+    # 4. the trace harness around the inference path
+    est = PoseEstimator(DEFAULT, seed=0, device="cuda")
+    batch = rng.integers(0, 256, (8, 368, 368, 3)).astype(np.uint8)
+    est.process_batch(batch)                                                 # warm
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        ops.reset_launch_counts()
+        with profiling.trace(logdir):
+            for i in range(2):
+                with profiling.annotate(f"oracle_batch_{i}"):
+                    est.process_batch(batch)
+        torch.cuda.synchronize()
+        traced = ops.launch_counts()
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace() wrote {files}")
+        trace_bytes = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    kernel_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {k: sorted(n for n in kernel_names if any(re.search(rf"\b{fn}\b", n) for fn in fns))
+             for k, fns in TRACED_KERNELS.items()}
+    regions = {e.get("name") for e in events} & {"oracle_batch_0", "oracle_batch_1"}
+    if not all(named.values()) or len(regions) != 2:
+        raise AssertionError(f"the trace names kernels {named} and regions {regions}; its "
+                             f"short kernel names "
+                             f"{sorted(n for n in kernel_names if len(n) < 120)[:80]}")
+    if traced["block1"] != 8 or min(traced[k] for k in named) < 1 or traced["gt"] \
+            or traced["peaks"]:
+        raise AssertionError(f"the traced batches launched {traced}")
+    add(traced)
+    ops.reset_launch_counts()
+    timed = profiling.time_fn(est.process_batch, batch, warmup=2, iters=10)
+    add(ops.launch_counts())
+    device_us = {k: sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel"
+                        and e.get("name") in v) for k, v in named.items()}
+    del est
+    torch.cuda.empty_cache()
+    _say("n", f"profiling.trace() around two 4-scale process_batch calls at batch 8 "
+              f"(annotate regions {sorted(regions)}): one trace file of {trace_bytes} bytes, "
+              f"{len(events)} events, naming {named}; device us of those kernels over the two "
+              f"batches {device_us}; launches {traced}")
+    _say("n", f"profiling.time_fn(process_batch, 8x368x368, 4 scales, warmup 2, iters 10): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in timed.items()) + f" ({card})")
+
+    # 5. the build cache in two fresh processes
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        before = sorted(os.listdir(_native.BUILD_DIR))
+        first, second = _cache_child(cache), _cache_child(cache)
+        after = sorted(os.listdir(_native.BUILD_DIR))
+        in_cache = sorted(os.listdir(cache))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    for child in (first, second):
+        if not (os.path.dirname(child["lib"]) == cache == child["build_dir"]
+                and child["launches"] == 1 and child["heat_max"] > 0.9):
+            raise AssertionError(f"the compile-cache child: {child}")
+    if first["builds"] != 1 or second["builds"] != 0 or first["lib"] != second["lib"] \
+            or in_cache != [os.path.basename(first["lib"])] or before != after:
+        raise AssertionError(f"compile cache: builds {first['builds']} then "
+                             f"{second['builds']}, cache holds {in_cache}, "
+                             f"{_native.BUILD_DIR} changed: {before != after}")
+    _say("n", f"TPUPOSE_COMPILE_CACHE=<tmp>, a fresh process launching gt once: 1 nvcc run, "
+              f"{in_cache[0]} in the cache and not in tpupose_torch/_build ({first['s']:.1f} s); "
+              f"a second process: 0 compiler runs, the same library loaded ({second['s']:.1f} s): "
+              f"pass")
+    _say("n", f"phase n took {time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return counts
+
+
 def main(parent: str | None = None) -> int:
     import dataclasses
     import gc
@@ -3083,6 +3386,10 @@ def main(parent: str | None = None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts_bench = _bench_phase(card)
+    # --- n. the card against the numpy oracles; the trace harness; the build cache ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_oracle = _oracle_phase(torch, np, card)
     if parent is not None:
         gc.collect()
         torch.cuda.empty_cache()
@@ -3091,7 +3398,8 @@ def main(parent: str | None = None) -> int:
     print("the timings and the training path once more, for a reader of the last lines:",
           flush=True)
     for line in [line for line in _SAID
-                 if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]", "[k]", "[l]", "[m]")]:
+                 if line[:3] in ("[e]", "[f]", "[h]", "[i]", "[j]", "[k]", "[l]", "[m]",
+                                 "[n]")]:
         print(line, flush=True)
     kernels = []
     for kern in ops.KERNELS:
@@ -3101,7 +3409,8 @@ def main(parent: str | None = None) -> int:
                                      + counts_full[kern.name] + counts_serve[kern.name]
                                      + counts_eval[kern.name] + counts_data_train[kern.name]
                                      + counts_multi[kern.name] + counts_deploy[kern.name]
-                                     + counts_adapt[kern.name] + counts_bench[kern.name]),
+                                     + counts_adapt[kern.name] + counts_bench[kern.name]
+                                     + counts_oracle[kern.name]),
                         **record[kern.name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

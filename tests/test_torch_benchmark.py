@@ -65,7 +65,7 @@ def test_pyramid_flops_equal_the_reference(h, w):
 def scenes():
     from tpupose import benchmark as jbench
 
-    return tbench.synthetic_scene(368, "cpu"), jbench.synthetic_scene()
+    return tbench.synthetic_scene(368), jbench.synthetic_scene()
 
 
 def test_synthetic_scene_matches_the_reference(scenes):

@@ -884,7 +884,7 @@ def test_bench_device_rate_and_latency_launch_the_inference_kernels(cuda):
     from tpupose_torch import benchmark, ops
     from tpupose_torch.infer import PoseEstimator
 
-    image, _, _ = benchmark.synthetic_scene(368, cuda)
+    image, _, _ = benchmark.synthetic_scene(368)
     est = PoseEstimator(seed=0, device=cuda)
     ops.reset_launch_counts()
     ips = benchmark._measure_on_device(est, np.stack([image] * 8), None, iters=2)

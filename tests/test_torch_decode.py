@@ -43,12 +43,14 @@ def _random_fields(rng, sizes, batch):
     return one(19), one(38)
 
 
-def _run_both(heats, pafs, sizes, out_hw, cfg, valid_hw=None, culled_rows_as_set=False):
+def _run_both(heats, pafs, sizes, out_hw, cfg, valid_hw=None, culled_rows_as_set=False,
+              reference=j_decode):
     """Both decodes on the same maps: every table equal (floats within
     1e-4). With ``culled_rows_as_set`` the rows that the cull drops (after
-    the kept ones) are compared as a set of rows, not in order."""
+    the kept ones) are compared as a set of rows, not in order.
+    ``reference`` is the JAX decode run: eager by default, or a jitted one."""
     geoms = [s[:2] for s in sizes]
-    want = jax.device_get(j_decode(
+    want = jax.device_get(reference(
         JSpace([jnp.asarray(m) for m in heats], geoms, out_hw),
         JSpace([jnp.asarray(m) for m in pafs], geoms, out_hw), cfg,
         None if valid_hw is None else jnp.asarray(valid_hw)))

@@ -4,8 +4,9 @@ loads neither h5py nor cv2, and its own copies of the reference's
 numpy-only modules (config, topology, drawing, config_io, models/caffe,
 the data path's coco_eval, coco_prep, hdf5, tpr, pipeline, pack_tpr and
 the C sources of its host libraries, parallel/'s pad_batch and
-grain_pipeline's Hdf5Source and PadForBatch, deploy's bundle helpers, and
-utils/flops.py but for its peak) cannot drift from them (the synthetic
+grain_pipeline's Hdf5Source and PadForBatch, deploy's bundle helpers,
+utils/flops.py but for its peak, and the numpy oracles gt_np and
+model_np) cannot drift from them (the synthetic
 dataset's copies are held in tests/test_torch_synthetic.py).
 """
 
@@ -58,7 +59,8 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
     assert {"buckets.py", "tracking.py", "decode_np.py", "peaks.py", "serve.py", "cli.py",
             "config_io.py", "caffe.py", "coco_eval.py", "coco_prep.py", "hdf5.py", "tpr.py",
             "rle.py", "pack_tpr.py", "grain_pipeline.py", "deploy.py",
-            "make_synthetic_dataset.py", "walkthrough.py", "benchmark.py", "flops.py"} <= \
+            "make_synthetic_dataset.py", "walkthrough.py", "benchmark.py", "flops.py",
+            "gt_np.py", "model_np.py", "profiling.py", "compile_cache.py"} <= \
         {os.path.basename(f) for f in files}
     assert {f"tpupose_torch/parallel/{m}.py" for m in
             ("__init__", "distributed", "sharding", "inference", "pyramid", "spatial")} <= \
@@ -85,6 +87,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "from tpupose_torch.data import make_synthetic_dataset\n"
         "from tpupose_torch.examples import walkthrough\n"
         "import tpupose_torch.benchmark, tpupose_torch.utils.flops\n"
+        "from tpupose_torch.reference_impl import gt_np, model_np\n"
+        "from tpupose_torch.utils import compile_cache, profiling\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print('LOADED', bad)\n"
         "print('OPTIONAL', sorted(m for m in sys.modules if m in ('h5py', 'cv2')))\n"
@@ -316,6 +320,14 @@ def test_parallel_and_grain_copies_equal_the_reference():
     import tpupose_torch.parallel.sharding as tsharding
 
     assert tsharding._PAD_VALUES == jsharding._PAD_VALUES
+
+
+@pytest.mark.parametrize("name", ["gt_np", "model_np"])
+def test_oracle_copies_equal_the_reference(name):
+    """The port's numpy oracles are the reference's code but for
+    docstrings and comments (and ``tpupose_torch`` for ``tpupose``)."""
+    got = _code(f"tpupose_torch/reference_impl/{name}.py")
+    assert got == _code(f"tpupose/reference_impl/{name}.py") and "FunctionDef" in got
 
 
 def test_tpr_batches_copy_differs_from_the_reference_only_in_docstrings():

@@ -69,16 +69,18 @@ LINE_KEYS = (
 )
 
 
-def synthetic_scene(size: int = 368, device="cuda"):
+def synthetic_scene(size: int = 368):
     """Deterministic 2-person scene + matching maps for the twin: image
     (size, size, 3) uint8, heat (size, size, 19) f32 with noise of 1e-3
-    (seed 7), paf (size, size, 38) f32. The labels are ``ops.gt``'s on
-    ``device`` (the gt kernel on a card), cast to f64 on the host."""
+    (seed 7), paf (size, size, 38) f32. The labels are the numpy oracle's
+    (``reference_impl.gt_np.create_heatmaps_np``), as the reference's are:
+    the scene is the same on every host and card."""
     import cv2
 
-    from tpupose_torch.examples.walkthrough import scene_labels
+    from tpupose_torch.examples.walkthrough import scene_joints
+    from tpupose_torch.reference_impl import gt_np
 
-    labels = scene_labels(device)
+    labels = gt_np.create_heatmaps_np(scene_joints())
     heat = cv2.resize(labels[:, :, 38:], (size, size), interpolation=cv2.INTER_CUBIC)
     paf = cv2.resize(labels[:, :, :38], (size, size), interpolation=cv2.INTER_CUBIC)
     noise = np.random.default_rng(7).normal(size=heat.shape) * 1e-3
@@ -98,7 +100,7 @@ def measure_baseline(cfg: PoseConfig = DEFAULT, size: int = 368) -> dict:
     from tpupose_torch.ops.image import scale_sizes
     from tpupose_torch.reference_impl import decode_np
 
-    _, heat, paf = synthetic_scene(size, "cpu")
+    _, heat, paf = synthetic_scene(size)
     decode_np.decode_np(heat, paf, cfg.inference)
     t0 = time.perf_counter()
     reps = 3
@@ -354,7 +356,7 @@ def main(baseline_cache: str | None = None, device="cuda", cfg: PoseConfig = DEF
     card = _card(device)
     ops.reset_launch_counts()
     c = counts
-    image, _, _ = synthetic_scene(size, device)
+    image, _, _ = synthetic_scene(size)
     est = PoseEstimator(cfg, device=device)
     batch = np.stack([image] * c.batch)
 

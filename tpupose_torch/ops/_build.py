@@ -4,9 +4,11 @@ Each kernel is one source, ``tpupose_torch/csrc/<name>.cu``, exporting an
 ``extern "C"`` launcher that enqueues the kernel on the stream it is given
 and returns the ``cudaError_t`` of the launch. The first launch of a
 kernel compiles its source with nvcc for ``sm_90a`` into a shared library
-under ``tpupose_torch/_build/`` and loads it with ``ctypes`` (a plain C
-interface: no PyTorch headers, so a build takes seconds). The library's
-file name carries a hash of the sources and flags, so an edited source is
+in the port's build directory (``data._native.BUILD_DIR``, by default
+``tpupose_torch/_build/``; ``utils/compile_cache.py`` moves it) and loads it
+with ``ctypes`` (a plain C interface: no PyTorch headers, so a build takes
+seconds). The library's file name carries a hash of the sources, the
+flags and ``nvcc --version``, so an edited source or another toolkit is
 rebuilt and a stale library is never loaded. Without nvcc the build
 raises: there is no fallback for CUDA tensors.
 """
@@ -22,9 +24,10 @@ import threading
 
 import torch
 
+from tpupose_torch.data import _native
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -46,6 +49,15 @@ def find_nvcc() -> str:
     )
 
 
+def nvcc_version() -> str:
+    """``nvcc --version``'s output, part of every kernel library's key;
+    empty without nvcc (a key no build has: the build then raises)."""
+    try:
+        return _native.compiler_version(find_nvcc())
+    except (RuntimeError, OSError):
+        return ""
+
+
 class CudaKernel:
     """One hand-written kernel: its source, its C launcher, its launch count.
 
@@ -65,10 +77,11 @@ class CudaKernel:
 
     def _lib_path(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h.update(nvcc_version().encode())
         for fname in (f"{self.name}.cu", *_HEADERS):
             with open(os.path.join(CSRC, fname), "rb") as f:
                 h.update(f.read())
-        return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:16]}.so")
+        return os.path.join(_native.BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
     @staticmethod
     def _tmp_path(lib: str) -> str:
@@ -135,13 +148,15 @@ class CudaKernel:
 
 
 def _compile(kernels) -> None:
-    """Run nvcc for every kernel whose library is missing, in parallel."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    """Run nvcc for every kernel whose library is missing, in parallel;
+    each run adds one to ``_native.builds``."""
     jobs = []
     for k in kernels:
         argv, lib = k.compile_command()
         if os.path.exists(lib):
             continue
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        _native.builds += 1
         proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((k, proc, argv[argv.index("-o") + 1], lib))

@@ -742,6 +742,10 @@ def main(argv=None) -> int:
     ap.add_argument("--buckets", default=None,
                     help="shape-bucket ladder: 'default' or '368x368,368x496,...' — "
                          "bounds the batch geometries over arbitrary request shapes")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="persistent kernel build cache: warm restarts load the "
+                         "kernels' libraries instead of running nvcc for each "
+                         "(utils/compile_cache.py)")
     ap.add_argument("--warmup", action="store_true",
                     help="run every (bucket x batch-size) geometry before "
                          "accepting traffic (requires --buckets): kernel builds, "
@@ -762,6 +766,11 @@ def main(argv=None) -> int:
                          "bundle's own")
     _add_common_model_args(ap)
     args = ap.parse_args(argv)
+
+    if args.compile_cache:
+        from tpupose_torch.utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache(args.compile_cache)
 
     bks = buckets_lib.resolve_buckets(args.buckets)
     if args.program:
