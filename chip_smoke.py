@@ -8,12 +8,13 @@ the redesigned kernels of that checkout, block1, sample, pyramid_peaks,
 peaks, assoc and gt, are timed beside this checkout's on the same inputs,
 in turns (parent, change, change, parent; the parent's in a process of
 its own), and their times enter the kernels' record as ``prev_ms``. The
-outputs of pyramid_peaks, peaks, assoc (on random and on crowded tables)
-and gt on the same saved inputs must equal the parent's bit for bit.
-assoc and gt must be faster than the parent's where their source differs
-from it (a redesign) and at most 5 % slower where it does not; pyramid_peaks
-and peaks, where their source differs, at most 5 % slower; block1 and sample
-are shown. Last, after phase m, the estimator of each checkout runs phase e's 4-scale batch of 8
+outputs of sample (on random points and on the main path's tables),
+pyramid_peaks, peaks, assoc (on random and on crowded tables) and gt on
+the same saved inputs must equal the parent's bit for bit. assoc and gt
+must be faster than the parent's where their source differs from it (a
+redesign) and at most 5 % slower where it does not; pyramid_peaks, peaks
+and sample (on both point sets), where their source differs, at most 5 %
+slower; block1 is shown. Last, after phase m, the estimator of each checkout runs phase e's 4-scale batch of 8
 and batch-1 latency in a process of its own, in turns (parent, change,
 change, parent): the change's images/s at least 0.95 and its latency at
 most 1.2 times the parent's.
@@ -28,8 +29,9 @@ exits non-zero):
      truth at most 2x the plain bf16 error + 1e-3); pyramid peaks at the
      4-scale 368x368 geometry (same peak mask, values within 1e-5);
      sample at the (8, 19, 96, 96, 10) point shape (within 1e-5); assoc
-     bit-equal on a planted scene's candidates, on random tables and on
-     the tables of 8 crowded 720x1280 frames (testing.crowded_scene, 32
+     bit-equal on a planted scene's candidates, on random tables (also
+     with NaN, +inf and -inf among the priors) and on the tables of 8
+     crowded 720x1280 frames (testing.crowded_scene, 32
      people each; accepted connections per limb and phase-2 steps shown,
      the chain floor beside the bound); pyramid peaks also at the portrait
      656x496 bucket and a 720x1280 frame (4 scales); peaks also at sigma
@@ -38,7 +40,15 @@ exits non-zero):
      same heat > 0 and band masks, values within 1e-6); peaks on smooth
      random full-res maps at (8, 368, 368, 19) and (2, 496, 656, 19)
      (bit-equal to its plain version; the same peak coordinates as the
-     scipy twin on one image, values within 1e-5). Beside each
+     scipy twin on one image, values within 1e-5). Then pyramid peaks,
+     sample and peaks on poisoned inputs at those shapes (NaN, +inf and
+     -inf in low-res maps, both signs in one channel, two scales; sample's
+     direct variant at the 496x656 bucket; whole-channel NaN and an +inf
+     square in the full-res field): the classes NaN, +inf and -inf at the
+     same places as the plain version's and every non-finite output's bits
+     equal, the finite outputs held as above, and the outputs the poison
+     does not reach bit-equal to the kernel's on the clean inputs; the
+     census and the pass after pyramid peaks timed alone. Beside each
      kernel's time: its bound on this card (the larger of bytes moved
      over 3.35 TB/s and operations over the peak rate of their type,
      counted from this run's inputs);
@@ -62,7 +72,10 @@ exits non-zero):
      on the CPU; materialised with upsample_to, the same scene decodes
      through decode_maps to the same 2 people, held the same way against
      the full-res decode on the CPU, the scale-space decode, and the
-     decode of the full-res heat map with the scale-space PAFs;
+     decode of the full-res heat map with the scale-space PAFs; the scene
+     beside a copy of it with NaN, +inf and -inf in its heat and PAF maps
+     decodes through both readouts to the CPU decode's tables, the clean
+     image to its tables alone;
      BucketedRunner.process_many over three images of different shapes
      (the full-res estimator, its two output convolutions scaled so that
      the random network emits peaks) returns, in input order and original
@@ -350,8 +363,9 @@ def _redesigned_times(torch, np, data_path: str) -> dict:
     path's point tables), pyramid_peaks (batch 8, 4 scales to 368x368),
     peaks ((8, 368, 368, 19), sigma 3), assoc (phase b's random tables and
     the crowded scenes' tables) and gt (phase b's batch), the last five on
-    the inputs saved under ``data_path``. Their outputs are saved beside
-    them, the file's path under "outputs", for a bit-for-bit comparison.
+    the inputs saved under ``data_path``. Their outputs (sample's on both
+    point sets) are saved beside them, the file's path under "outputs", for
+    a bit-for-bit comparison.
     Inputs depend on nothing but the seeds."""
     from tpupose_torch import topology
     from tpupose_torch.config import DEFAULT
@@ -385,10 +399,12 @@ def _redesigned_times(torch, np, data_path: str) -> dict:
     iy = torch.from_numpy(rng.integers(0, 368, (8, 19, 96, 96, 10)).astype(np.int32)).to(dev)
     ix = torch.from_numpy(rng.integers(0, 368, (8, 19, 96, 96, 10)).astype(np.int32)).to(dev)
     out["sample_random"] = _ms(torch, lambda: sample_mod.sample_avg(space, iy, ix, chans), 3)
+    outputs = {"sample_random": sample_mod.sample_avg(space, iy, ix, chans).cpu()}
     data = torch.load(data_path)
     space = ScaleSpace([m.to(dev) for m in data["maps"]], geoms, (368, 368))
     iy, ix = data["iy"].to(dev), data["ix"].to(dev)
     out["sample_main_path"] = _ms(torch, lambda: sample_mod.sample_avg(space, iy, ix, chans), 3)
+    outputs["sample_main_path"] = sample_mod.sample_avg(space, iy, ix, chans).cpu()
     heat = ScaleSpace([m.to(dev) for m in data["heat"]], geoms, (368, 368))
     field = data["field"].to(dev)
     tables = {name: [t.to(dev) for t in data[name]] for name in ("assoc_random", "assoc_crowded")}
@@ -400,7 +416,6 @@ def _redesigned_times(torch, np, data_path: str) -> dict:
         "assoc_crowded": lambda: assoc_mod.assoc(*tables["assoc_crowded"], **data["assoc_kw"]),
         "gt": lambda: gt_mod.create_labels(gj, gm, **data["gt_kw"]),
     }
-    outputs = {}
     for name, call in calls.items():
         got = call()
         outputs[name] = ({k: v.cpu() for k, v in got.items()} if isinstance(got, dict)
@@ -409,6 +424,166 @@ def _redesigned_times(torch, np, data_path: str) -> dict:
     out["outputs"] = f"{data_path}.{os.getpid()}.outputs.pt"
     torch.save(outputs, out["outputs"])
     return out
+
+
+def _classes_differ(torch, got, want) -> tuple[int, float, int]:
+    """(elements whose class — finite, NaN, +inf, -inf — differs, the largest
+    difference of the finite ones, non-finite elements whose bits differ)."""
+    flips = sum(int((f(got) != f(want)).sum())
+                for f in (torch.isnan, torch.isposinf, torch.isneginf))
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    err = (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    off = ~torch.isfinite(want)
+    return flips, err, int((got[off].view(torch.int32) != want[off].view(torch.int32)).sum())
+
+
+# Non-finite entries a poisoned batch of low-res maps gets: (scale, image, row,
+# column, channel, value), a negative row or column counted from the end. A
+# NaN; one +inf and one -inf; +inf and -inf in one channel; two +inf at two
+# scales; +inf in the last row and column.
+_POISONS = ((0, 0, 1, 2, 1, "nan"), (-1, 1, 11, 11, 2, "inf"), (1, 2, 3, 3, 3, "-inf"),
+            (-1, 3, 1, 1, 4, "inf"), (-1, 3, -2, 1, 4, "-inf"),
+            (0, 4, 0, 0, 5, "inf"), (2, 4, 2, 2, 5, "inf"), (-1, 5, -1, -1, 6, "inf"))
+
+
+def _poisoned(torch, maps: list, channel=lambda c: c) -> tuple[list, set]:
+    """Copies of per-scale (B, Hl, Wl, C) maps with _POISONS set (channel c
+    becomes ``channel(c)``), and the (image, channel) pairs they reach."""
+    out = [m.clone() for m in maps]
+    hit = set()
+    for s, b, h, w, c, v in _POISONS:
+        m = out[s]
+        m[b, h % m.shape[1], w % m.shape[2], channel(c)] = float(v)
+        hit.add((b, channel(c)))
+    return out, hit
+
+
+def _nonfinite_kernels(torch, np, card: str, pp_mod, sample_mod, pk_mod, heat_space, paf_space,
+                       iy, ix, chans, field, icfg, record: dict) -> None:
+    """Phase b on non-finite maps: pyramid_peaks, sample (its staged variant
+    at the main path's shapes, its direct one at the 496x656 bucket) and
+    peaks against their plain versions on poisoned inputs: NaN, +inf and
+    -inf at the same places, the bits of every non-finite output equal, the
+    finite outputs as the finite check holds them; outputs of the images
+    and channels the poison does not reach bit-equal to the kernel's on the
+    clean maps. Times the census and the pass after the kernel."""
+    import ctypes
+
+    from tpupose_torch.decode.scalespace import ScaleSpace, scale_shapes
+    from tpupose_torch.ops import image
+
+    sigma, thre1 = icfg.peak_sigma, icfg.thre1
+    maps, hit = _poisoned(torch, list(heat_space.maps))
+    space = ScaleSpace(maps, heat_space.geoms, heat_space.out_hw)
+    got = pp_mod.pyramid_peak_scores(space, 18, sigma, thre1)
+    want = pp_mod.pyramid_peak_scores_plain(space, 18, sigma, thre1)
+    clean = pp_mod.pyramid_peak_scores(heat_space, 18, sigma, thre1)
+    flips, err, bits = _classes_differ(torch, got, want)
+    keep = torch.ones(got.shape[:2], dtype=torch.bool, device=got.device)
+    for b, c in hit:
+        keep[b, c] = False
+    moved = _bits_differ(torch, got[keep], clean[keep])
+    special = int((~torch.isfinite(want) & ~torch.isneginf(want)).sum())
+    if flips or bits or not err <= 1e-5 or moved or not special:
+        raise AssertionError(f"pyramid peaks on poisoned maps: {flips} class flips, {bits} "
+                             f"non-finite outputs of other bits, max err {err}, {moved} clean "
+                             f"outputs moved, {special} NaN or +inf outputs")
+    out = torch.empty_like(got)
+    census = torch.empty((got.shape[0], pp_mod.census_chunks(scale_shapes(heat_space)), 18),
+                         dtype=torch.int32, device=got.device)
+    params = pp_mod._params(heat_space, 18, float(sigma), thre1, out, census)
+    argtypes = [ctypes.POINTER(pp_mod._Params), ctypes.c_void_p]
+    census_fn = pp_mod.KERNEL.entry("tp_pyramid_census", argtypes)
+    pass_fn = pp_mod.KERNEL.entry("tp_pyramid_poisoned", argtypes)
+    stream = torch.cuda.current_stream().cuda_stream
+    census_ms = _ms(torch, lambda: census_fn(ctypes.byref(params), stream), 20)
+    pass_ms = _ms(torch, lambda: pass_fn(ctypes.byref(params), stream), 20)
+    poisoned_ms = _ms(torch, lambda: pp_mod.pyramid_peak_scores(space, 18, sigma, thre1), 5)
+    record["pyramid_peaks"].update(census_ms=census_ms, poisoned_pass_ms=pass_ms,
+                                   poisoned_ms=poisoned_ms)
+    _say("b", f"pyramid peaks on poisoned maps (batch 8, 4 scales, 368x368; NaN, +inf, -inf, "
+              f"both signs in a channel, two scales, the last row): classes and non-finite bits equal "
+              f"to the plain version's, {special} NaN or +inf outputs, max err {err:.3e} "
+              f"(<= 1e-5), the other images' and channels' outputs bit-equal to the clean "
+              f"maps': pass; census {census_ms:.4f} ms, the pass after the kernel (census "
+              f"clear) {pass_ms:.4f} ms, the poisoned batch {poisoned_ms:.3f} ms ({card})")
+
+    # sample: the x channel of limb c (chans[c][0]) takes poison c
+    pairs = torch.as_tensor(chans).reshape(-1, 2)
+    first = [int(v) for v in pairs[:, 0]]
+    maps, hit = _poisoned(torch, list(paf_space.maps), lambda c: first[c])
+    space = ScaleSpace(maps, paf_space.geoms, paf_space.out_hw)
+    got = sample_mod.sample_avg(space, iy, ix, chans)
+    want = sample_mod.sample_avg_plain(space, iy, ix, chans)
+    clean = sample_mod.sample_avg(paf_space, iy, ix, chans)
+    flips, err, bits = _classes_differ(torch, got, want)
+    keep = torch.ones(got.shape[:2], dtype=torch.bool, device=got.device)
+    for b, c in hit:
+        keep[b, first.index(c)] = False
+    moved = _bits_differ(torch, got[keep], clean[keep])
+    n_inf = int(torch.isinf(want).sum())
+    if flips or bits or not err <= 1e-5 or moved or not n_inf:
+        raise AssertionError(f"sample on poisoned maps: {flips} class flips, {bits} non-finite "
+                             f"outputs of other bits, max err {err}, {moved} clean outputs "
+                             f"moved, {n_inf} inf outputs")
+    # the direct variant: the 496x656 bucket, two images
+    rng = np.random.default_rng(11)
+    sizes_b = image.scale_sizes(496, 656, icfg.scale_search, 368, 8)
+    maps_b = [torch.from_numpy(rng.normal(size=(2, ph // 8, pw // 8, 38)).astype(np.float32))
+              .to(iy.device) for _, _, ph, pw in sizes_b]
+    poisoned_b = [m.clone() for m in maps_b]
+    keep_b = torch.ones((2, 19), dtype=torch.bool, device=iy.device)
+    for s_b, b, h, w, c, v in ((0, 0, 1, 2, 0, "nan"), (-1, 1, 40, 50, 2, "inf"),
+                               (-1, 1, 20, 60, 5, "-inf")):
+        poisoned_b[s_b][b, h, w, c] = float(v)
+        keep_b[b] &= ~(pairs == c).any(dim=1).to(iy.device)
+    space_b = ScaleSpace(poisoned_b, [g[:2] for g in sizes_b], (496, 656))
+    shape_b = (2, 19, 24, 24, 10)
+    iy_b = torch.from_numpy(rng.integers(-2, 498, shape_b).astype(np.int32)).to(iy.device)
+    ix_b = torch.from_numpy(rng.integers(-2, 658, shape_b).astype(np.int32)).to(iy.device)
+    if sample_mod.staged_bytes(space_b) <= 227 * 1024:
+        raise AssertionError("sample: the 496x656 bucket no longer takes the direct variant")
+    got_b = sample_mod.sample_avg(space_b, iy_b, ix_b, chans)
+    want_b = sample_mod.sample_avg_plain(space_b, iy_b, ix_b, chans)
+    flips_b, err_b, bits_b = _classes_differ(torch, got_b, want_b)
+    clean_b = sample_mod.sample_avg(ScaleSpace(maps_b, space_b.geoms, space_b.out_hw),
+                                    iy_b, ix_b, chans)
+    moved_b = _bits_differ(torch, got_b[keep_b], clean_b[keep_b])
+    if flips_b or bits_b or not err_b <= 1e-5 or moved_b:
+        raise AssertionError(f"sample, direct variant, on poisoned maps: {flips_b} class flips, "
+                             f"{bits_b} non-finite outputs of other bits, max err {err_b}, "
+                             f"{moved_b} clean outputs moved")
+    p_b, _, alive = sample_mod.launch_params(space_b, iy_b, ix_b, chans.reshape(-1).tolist())
+    census_b = sample_mod.KERNEL.entry("tp_sample_census",
+                                      [ctypes.POINTER(sample_mod._Params), ctypes.c_void_p])
+    census_b_ms = _ms(torch, lambda: census_b(ctypes.byref(p_b), stream), 20)
+    direct_ms = _ms(torch, lambda: sample_mod.sample_avg(space_b, iy_b, ix_b, chans), 5)
+    record["sample"].update(direct_census_ms=census_b_ms, direct_bucket_ms=direct_ms)
+    del alive
+    _say("b", f"sample on poisoned maps, staged variant at {tuple(iy.shape)} (the poisons above "
+              f"on the limbs' x channels) and direct variant at the 496x656 bucket {shape_b}: "
+              f"classes and non-finite bits equal to the plain version's ({n_inf} + "
+              f"{int(torch.isinf(want_b).sum())} inf outputs), max err {max(err, err_b):.3e} "
+              f"(<= 1e-5), the groups the poison does not reach bit-equal to the clean maps': "
+              f"pass; the direct variant {direct_ms:.4f} ms, of which its census "
+              f"{census_b_ms:.4f} ms ({card})")
+
+    # peaks: whole-channel NaN (the full-res maps of a poisoned channel), an
+    # +inf square, a -inf channel, one NaN pixel
+    poisoned_f = field.clone()
+    poisoned_f[0, ..., 1] = float("nan")
+    poisoned_f[1, 100:140, 50:90, 2] = float("inf")
+    poisoned_f[2, ..., 3] = float("-inf")
+    poisoned_f[3, 200, 200, 4] = float("nan")
+    got = pk_mod.peak_scores(poisoned_f, 18, sigma, thre1)
+    want = pk_mod.peak_scores_plain(poisoned_f, 18, sigma, thre1)
+    bits = _bits_differ(torch, got, want)
+    n_inf = int(torch.isposinf(want).sum())
+    if bits or not n_inf:
+        raise AssertionError(f"peaks on poisoned maps: {bits} outputs differ in their bits from "
+                             f"the plain version's ({n_inf} +inf peaks)")
+    _say("b", f"peaks on poisoned maps (8, 368, 368, 19): a NaN channel, an +inf square ({n_inf} "
+              f"+inf peaks), a -inf channel, a NaN pixel: bit-equal to the plain version: pass")
 
 
 def _bits_differ(torch, a, b) -> int:
@@ -2545,11 +2720,19 @@ def main(parent: str | None = None) -> int:
     scores = torch.from_numpy(rng.random((8, 18, k)).astype(np.float32)).to(dev)
     limits = torch.from_numpy(rng.integers(1, k + 1, (8, 19)).astype(np.int32)).to(dev)
     random_tables = (*paf_mod.candidates(prior, ok, scores, min(512, k * k)), limits)
+    # the same tables with NaN, +inf and -inf among the priors of live pairs
+    spots = torch.from_numpy(rng.random((8, 19, k, k)) < 0.01).to(dev)
+    kinds = torch.from_numpy(rng.integers(0, 3, (8, 19, k, k))).to(dev)
+    poisoned_prior = torch.where(spots, torch.tensor([float("nan"), float("inf"), -float("inf")],
+                                                     device=dev)[kinds], prior)
+    poisoned_tables = (*paf_mod.candidates(poisoned_prior, ok | spots, scores, min(512, k * k)),
+                       limits)
     kw = dict(k_slots=k, n_conn=min(icfg.max_connections, k),
               max_people=max(icfg.max_people, icfg.scan_people_capacity))
     clock_now, clock_max = _sm_clock_mhz()
     assoc_stats = {}
     for name, tables in (("planted scene", planted), ("random tables", random_tables),
+                         ("random tables with NaN and +-inf priors", poisoned_tables),
                          ("crowded scenes", crowded)):
         got = assoc_mod.assoc(*tables, **kw)
         want = assoc_mod.assoc_plain(*tables, **kw)
@@ -2690,6 +2873,8 @@ def main(parent: str | None = None) -> int:
                        "library_ms": None, "sigma_ms": record.pop("peaks_sigma_ms")}
     _say("b", f"peaks batch 8, 368x368, 18 channels: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
               f"({card})")
+    _nonfinite_kernels(torch, np, card, pp_mod, sample_mod, pk_mod, heat_space, paf_space, iy,
+                       ix, chans, pk_field, icfg, record)
     del pk_field, pk_out, field, got, want
     for name, r in record.items():
         _say("b", f"{name}: bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
@@ -2826,6 +3011,46 @@ def main(parent: str | None = None) -> int:
               f"({[p['num_parts'] for p in people]} parts); integers equal and floats within 1e-4 "
               "of " + ", ".join(label for label, _ in others) + ": pass")
 
+    # the scene beside a copy of it with non-finite network output, through
+    # both readouts on the card and on the CPU: the same tables, and the
+    # clean image's as it decodes alone
+    def poisoned_scene(maps, spots):
+        out = [torch.cat([m, m]) for m in maps]
+        for s_p, h, w, c, v in spots:
+            out[s_p][1, h, w, c] = float(v)
+        return out
+
+    heats_p = poisoned_scene(heats1, ((0, 3, 4, 1, "nan"), (-1, 40, 40, 3, "inf"),
+                                      (1, 10, 12, 8, "-inf")))
+    pafs_p = poisoned_scene(pafs1, ((1, 5, 6, 28, "nan"), (2, 30, 30, 20, "inf")))
+    got_p = {}
+    for d in ("cpu", "cuda"):
+        got_p[d, "scale-space"] = decode_impl_batch(
+            ScaleSpace([h.to(d) for h in heats_p], geoms, (368, 368)),
+            ScaleSpace([p.to(d) for p in pafs_p], geoms, (368, 368)), icfg)
+        got_p[d, "full-res"] = decode_impl_batch(
+            image.average_upsampled([h.to(d) for h in heats_p], sizes, 368, 368, 8),
+            image.average_upsampled([p.to(d) for p in pafs_p], sizes, 368, 368, 8), icfg)
+    for readout, alone in (("scale-space", out["cuda"]),
+                           ("full-res", {k: v[None] for k, v in full["cuda"].items()})):
+        for key, v in got_p["cpu", readout].items():
+            g = got_p["cuda", readout][key].cpu()
+            if v.dtype.is_floating_point:
+                flips, err, _ = _classes_differ(torch, g, v)
+                if flips or not err <= 1e-4:
+                    raise AssertionError(f"poisoned scene, {readout}: {key} differs from the CPU")
+            elif not torch.equal(g, v):
+                raise AssertionError(f"poisoned scene, {readout}: {key} differs from the CPU")
+            a = alone[key][0].cpu()
+            if (not torch.equal(g[0], a) if not v.dtype.is_floating_point
+                    else not (g[0] - a).abs().max().item() <= 1e-4):
+                raise AssertionError(f"poisoned scene, {readout}: the clean image's {key} moved")
+    people_p = [len(to_people({k: v[i].cpu().numpy() for k, v in got_p["cuda", r].items()}))
+                for r in ("scale-space", "full-res") for i in range(2)]
+    _say("d", "the scene beside a copy with NaN, +inf and -inf in its heat and PAF maps, both "
+              f"readouts: tables equal to the CPU decode's, the clean image's as alone; people "
+              f"(scale-space clean, poisoned; full-res clean, poisoned) {people_p}: pass")
+
     # --- e. timings -------------------------------------------------------------
     def throughput(runner, batch, scales, n_warm, n_timed):
         for _ in runner.stream([batch] * n_warm, scales=scales):
@@ -2956,6 +3181,8 @@ def main(parent: str | None = None) -> int:
         for name in ("pyramid_peaks", "peaks", "gt"):
             record[name]["prev_ms"] = float(was[name])
             record[name]["in_turns_ms"] = float(now[name])
+        record["sample"]["in_turns_ms"] = float(now["sample_random"])
+        record["sample"]["main_path_in_turns_ms"] = float(now["sample_main_path"])
         record["assoc"]["prev_ms"] = float(was["assoc_random"])
         record["assoc"]["prev_crowded_ms"] = float(was["assoc_crowded"])
         record["assoc"]["in_turns_ms"] = float(now["assoc_random"])
@@ -2984,13 +3211,15 @@ def main(parent: str | None = None) -> int:
                   + ", ".join(f"{name} {d}" for name, d in diff.items()))
         # assoc and gt (the last kernels redesigned), where their source
         # differs from the parent's: faster than it; where it does not: at
-        # most 5 % slower, the rule of a changed pyramid_peaks or peaks
-        # (outputs bit-equal below)
+        # most 5 % slower, the rule of a changed pyramid_peaks, peaks or
+        # sample (outputs bit-equal below)
         slower = [key for key, name in (("assoc_random", "assoc"), ("assoc_crowded", "assoc"),
                                         ("gt", "gt"))
                   if now[key] >= was[key] and (name in changed or now[key] > 1.05 * was[key])]
         slower += [name for name in ("pyramid_peaks", "peaks")
                    if name in changed and now[name] > 1.05 * was[name]]
+        slower += [key for key in ("sample_random", "sample_main_path")
+                   if "sample" in changed and now[key] > 1.05 * was[key]]
         unequal = [name for name, d in diff.items() if any(d)]
         if slower or unequal:
             raise AssertionError(f"against the parent: slower {slower}, outputs differ {unequal}")

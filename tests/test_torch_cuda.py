@@ -7,7 +7,9 @@ imports no jax, so it also runs where only torch is installed:
 
 Tolerances: block1 within the bf16 bound of tests/test_pallas_block1.py
 (against an f32 truth); pyramid peaks the same peak mask and values
-within 1e-5; sample within 1e-5; assoc bit-equal; peaks bit-equal; the
+within 1e-5; sample within 1e-5; both on non-finite maps with NaN, +inf
+and -inf at the plain version's places and the bits of every non-finite
+output equal; assoc bit-equal; peaks bit-equal; the
 decode's integer tables equal and floats within 1e-4 (scale-space and
 full-res); gt the same masks and values within 1e-6; a small train step
 within 1e-4 (losses) of the CPU.
@@ -222,6 +224,103 @@ def test_pyramid_peaks_kernel_plateau(cuda):
     assert (got[found] - avg[found]).abs().max().item() <= 1e-5
 
 
+def _same_classes(got, want, tol):
+    """NaN, +inf and -inf at the same places, the bits of every non-finite
+    output equal, the finite ones within ``tol``."""
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(want))
+    fin = torch.isfinite(want)
+    assert torch.equal(got[~fin].view(torch.int32), want[~fin].view(torch.int32))
+    if fin.any():
+        assert (got[fin] - want[fin]).abs().max().item() <= tol
+
+
+_POISONS = {"nan": [(0, 0, 3, 4, 1, np.nan)], "+inf": [(3, 1, 40, 40, 2, np.inf)],
+            "-inf": [(1, 0, 10, 12, 3, -np.inf)],
+            "both signs": [(3, 1, 2, 2, 4, np.inf), (3, 1, 80, 2, 4, -np.inf)],
+            "two scales": [(0, 0, 1, 1, 5, np.inf), (2, 0, 30, 30, 5, np.inf)]}
+
+
+@pytest.mark.parametrize("kind", list(_POISONS))
+def test_pyramid_peaks_kernel_on_nonfinite_maps(cuda, kind):
+    """The contract of decode/scalespace.py: the census kernel, the kernel
+    and the pass after it against the dense plain version; the channels the
+    poison does not reach as on the clean maps, bit for bit."""
+    rng = np.random.default_rng(21)
+    maps = [torch.from_numpy(rng.normal(size=(2, ph // 8, pw // 8, 19)).astype(np.float32))
+            .to(cuda) for _, _, ph, pw in SIZES]
+    clean = pyramid_peak_scores(ScaleSpace(maps, GEOMS, (368, 368)), 18, 3.0, 0.1)
+    poisoned = [m.clone() for m in maps]
+    for s, b, h, w, c, v in _POISONS[kind]:
+        poisoned[s][b, h, w, c] = float(v)
+    space = ScaleSpace(poisoned, GEOMS, (368, 368))
+    got = pyramid_peak_scores(space, 18, 3.0, 0.1)
+    _same_classes(got, pyramid_peak_scores_plain(space, 18, 3.0, 0.1), 1e-5)
+    hit = {(b, c) for _, b, _, _, c, _ in _POISONS[kind]}
+    for b in range(2):
+        for c in range(18):
+            if (b, c) not in hit:
+                assert torch.equal(got[b, c], clean[b, c])
+            else:
+                assert not torch.isfinite(got[b, c]).any()
+
+
+@pytest.mark.parametrize("size", [(368, 368), (496, 656)])
+@pytest.mark.parametrize("kind", list(_POISONS))
+def test_sample_kernel_on_nonfinite_maps(cuda, kind, size):
+    """Both variants (staged at 368x368, direct at the 496x656 bucket)
+    against the plain version on poisoned maps, points inside and outside
+    the image; the groups the poison does not reach as on the clean maps."""
+    from tpupose_torch.ops import sample as sample_mod
+
+    sizes = image.scale_sizes(*size, (0.5, 1.0, 1.5, 2.0), 368, 8)
+    rng = np.random.default_rng(22)
+    maps = [torch.from_numpy(rng.normal(size=(2, ph // 8, pw // 8, 38)).astype(np.float32))
+            .to(cuda) for _, _, ph, pw in sizes]
+    space = ScaleSpace(maps, [s[:2] for s in sizes], size)
+    poisoned = [m.clone() for m in maps]
+    for s, b, h, w, c, v in _POISONS[kind]:
+        poisoned[s][b, h % maps[s].shape[1], w % maps[s].shape[2], 2 * c] = float(v)
+    space_p = ScaleSpace(poisoned, space.geoms, size)
+    shape = (2, 19, 12, 12, 10)
+    iy = torch.from_numpy(rng.integers(-2, size[0] + 2, shape).astype(np.int32)).to(cuda)
+    ix = torch.from_numpy(rng.integers(-2, size[1] + 2, shape).astype(np.int32)).to(cuda)
+    got = sample_avg(space_p, iy, ix, _PAIRS)
+    _same_classes(got, sample_avg_plain(space_p, iy, ix, torch.as_tensor(_PAIRS)), 1e-5)
+    clean = sample_avg(space, iy, ix, _PAIRS)
+    hit = {(b, c) for _, b, _, _, c, _ in _POISONS[kind]}
+    for b in range(2):
+        for limb in range(19):
+            if (b, limb) not in hit:
+                assert torch.equal(got[b, limb], clean[b, limb])
+    variant = "staged" if sample_mod.staged_bytes(space) <= 227 * 1024 else "direct"
+    assert variant == ("staged" if size == (368, 368) else "direct")
+
+
+def test_census_layouts_match_the_kernels(cuda):
+    """ops/pyramid_peaks.census_chunks and ops/sample.census_words and
+    census_chunks against the launchers' own counts."""
+    import ctypes
+
+    from tpupose_torch.decode.scalespace import scale_shapes
+    from tpupose_torch.ops import pyramid_peaks as pp
+    from tpupose_torch.ops import sample as sample_mod
+
+    for size in ((368, 368), (496, 656), (720, 1280)):
+        sizes = image.scale_sizes(*size, (0.5, 1.0, 1.5, 2.0), 368, 8)
+        maps = [torch.zeros((1, ph // 8, pw // 8, 38), device=cuda) for _, _, ph, pw in sizes]
+        space = ScaleSpace(maps, [s[:2] for s in sizes], size)
+        out = torch.empty((1, 18, size[0] * size[1]), device=cuda)
+        params = pp._params(space, 18, 3.0, 0.1, out)
+        chunks = pp.KERNEL.entry("tp_pyramid_census_chunks", [ctypes.POINTER(pp._Params)])
+        assert chunks(ctypes.byref(params)) == pp.census_chunks(scale_shapes(space))
+        iy = torch.zeros((1, 19, 4), dtype=torch.int32, device=cuda)
+        p, _, _keep = sample_mod.launch_params(space, iy, iy, _PAIRS.reshape(-1).tolist())
+        words = sample_mod.KERNEL.entry("tp_sample_census_words",
+                                        [ctypes.POINTER(sample_mod._Params)])
+        assert words(ctypes.byref(p)) == p.census_words
+
+
 _PAIRS = np.stack([np.arange(0, 38, 2), np.arange(1, 38, 2)], axis=1)
 # (image size, scales, batch, points per group, channel pairs, variant the
 # sizes call for): the pyramid geometry, whose maps and tap table fit a block's
@@ -370,6 +469,28 @@ def test_assoc_kernel_bit_equal(cuda, seed, k, density):
                 torch.cuda.current_stream().cuda_stream) == 0
     for key in want:
         assert torch.equal(out[key], want[key]), key
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"), -float("inf")])
+def test_assoc_kernel_on_nonfinite_priors(cuda, value):
+    """Candidate tables whose priors hold NaN or +-inf on live pairs: the
+    kernel bit-equal to assoc_plain (a non-finite prior is never accepted)."""
+    from tpupose_torch.decode.paf import candidates
+
+    rng = np.random.default_rng(31)
+    k = 16
+    prior = torch.from_numpy(rng.normal(size=(3, 19, k, k)).astype(np.float32)).to(cuda)
+    ok = torch.from_numpy(rng.random((3, 19, k, k)) < 0.3).to(cuda)
+    spots = torch.from_numpy(rng.random((3, 19, k, k)) < 0.05).to(cuda)
+    prior[spots] = value
+    limits = torch.from_numpy(rng.integers(1, k + 1, (3, 19)).astype(np.int32)).to(cuda)
+    scores = torch.from_numpy(rng.random((3, 18, k)).astype(np.float32)).to(cuda)
+    tables = candidates(prior, ok | spots, scores, min(512, k * k))
+    got = assoc(*tables, limits, k_slots=k, n_conn=k, max_people=256)
+    want = assoc_plain(*tables, limits, k_slots=k, n_conn=k, max_people=256)
+    assert int(want["active"].sum()) > 0
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
 
 
 def test_planted_scene_decodes_on_cuda_as_on_cpu(cuda):

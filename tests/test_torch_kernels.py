@@ -559,15 +559,17 @@ def test_sample_tap_table_reproduces_the_plain_readout():
                                             ((240, 960), (0.5, 1.0, 1.5), False)])
 def test_sample_staged_bytes(hw, scales, fits):
     """The shared memory the staged variant asks for, against the 227 KB a
-    block of the H100 may opt in to: the pyramid's maps and table fit (198
-    KB), the 496 x 656 bucket's four scales do not."""
+    block of the H100 may opt in to: the pyramid's maps, table and the
+    census records of a channel pair fit (198 KB), the 496 x 656 bucket's
+    four scales do not."""
     from tpupose_torch.ops import sample as sample_mod
 
     sizes = scale_sizes(*hw, scales, 368, 8)
     maps = [torch.zeros((1, ph // 8, pw // 8, 38)) for _, _, ph, pw in sizes]
     need = sample_mod.staged_bytes(TSpace(maps, [s[:2] for s in sizes], hw))
     table = len(sizes) * (sum(hw) + 4) * (4 * 4 + 4 * 2)
-    assert need == sum(m[0, :, :, :2].numel() * 4 for m in maps) + table + 32
+    records = 2 * 4 * sample_mod.census_words([m.shape[1:3] for m in maps])
+    assert need == sum(m[0, :, :, :2].numel() * 4 for m in maps) + table + 32 + records
     assert (need <= 227 * 1024) == fits
 
 

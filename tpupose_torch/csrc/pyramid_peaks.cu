@@ -22,8 +22,26 @@
 // the multiply-adds of the dense formulation (fmaf, then acc += part *
 // inv_n per scale in scale order): an FMA with an exact-zero coefficient
 // leaves a finite sum unchanged, so the result equals the dense chain's
-// bit for bit. Maps that hold inf or NaN are the exception: the dense
-// chain spreads NaN through 0 * inf, the banded one only within a band.
+// bit for bit.
+//
+// Maps that hold a NaN or an inf follow the contract of
+// decode/scalespace.py, which is what the dense chain gives them: per
+// (image, channel, scale) term, a NaN anywhere makes the term NaN at every
+// output, and inf entries of one sign give +-inf where every one of them
+// lies in the output's footprint (the non-zero coefficients of its row of
+// Ay_s or Wy_s and of its column of BxT_s or WxT_s) and NaN elsewhere;
+// terms add in IEEE arithmetic. A block sees only a band of the maps, so
+// the census is a kernel of its own, launched first on the same stream:
+// per image, chunk of kCensusRows low-res rows of a scale and channel, one
+// word with a bit for NaN, +inf and -inf. The kernel below is the finite
+// path, unchanged, whatever the census. A third kernel, one block per
+// (group of channels, image), ORs its channels' words per scale; where they
+// are clear the block is done, and where one is set it marks the rows and
+// columns of that scale's inf entries from the whole map and writes every
+// output of that channel again from the set scales' classes alone
+// (poisoned_channels): a finite term adds nothing to a non-finite one,
+// since a convex weighting of finite values cannot overflow, and the NMS
+// of a field of classes needs only the classes.
 //
 // What bounds it on the H100: bytes by the count (the low-res maps in,
 // one f32 per output pixel out: 78 MB for a batch of 8 at 368x368, about
@@ -82,6 +100,9 @@ struct PyramidParams {
   int wcap[kMaxScales];  // low-res columns a tile of columns reaches, at most
   float inv_n, thre1;
   float* out;            // (B, parts, H*W)
+  int hl[kMaxScales], wl[kMaxScales];  // low-res map sizes
+  int* census;           // (B, census_chunks, parts) words, written by the census kernel
+  int census_chunks;     // chunks of kCensusRows low-res rows over all scales, per image
 };
 
 namespace {
@@ -94,6 +115,16 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 3;               // channels per block
 constexpr int kLPitch = kRows + 4;      // floats per (channel, low-res column)
 constexpr int kPeakList = 1024;         // peaks of a channel averaged after its NMS
+
+constexpr int kCensusRows = 8;          // low-res rows a census block reads
+constexpr int kCensusThreads = 512;
+
+// words of one channel's row and column masks over all scales
+__host__ __device__ inline int channel_mask_words(const PyramidParams& p) {
+  int words = 0;
+  for (int s = 0; s < p.n_scales; ++s) words += mask_words(p.hl[s]) + mask_words(p.wl[s]);
+  return words;
+}
 
 __host__ __device__ inline size_t smem_floats(const PyramidParams& p) {
   size_t hsum = 0, wsum = 0;
@@ -117,6 +148,202 @@ __device__ float average_at(const PyramidParams& p, const float* s_v, int r, int
     s_v += p.wcap[s] * kRows;
   }
   return avg;
+}
+
+// dynamic shared memory of the pass after the kernel: census words and
+// masks of kGroup channels, then a byte per output row and column per scale
+// for the blurred and the averaged map
+__host__ __device__ inline size_t fix_smem_bytes(const PyramidParams& p) {
+  return (kGroup * kMaxScales + kGroup * channel_mask_words(p)) * sizeof(int) +
+         static_cast<size_t>(p.n_scales) * 2 * (p.out_h + p.out_w);
+}
+
+// Whether a band of an operator (its non-zero coefficients, at ``at`` of
+// an output axis of ``stride``) covers every bit set in ``bits``: the
+// inf entries' rows (or columns) all lie in the output's footprint.
+__device__ __noinline__ bool band_holds(const int* bits, int words, int start,
+                                        const float* coef, int width, int stride, int at) {
+  int total = 0;
+  for (int i = 0; i < words; ++i) total += __popc(bits[i]);
+  int held = 0;
+  for (int k = 0; k < width; ++k) {
+    const int h = start + k;
+    if (coef[k * stride + at] != 0.f && ((bits[h >> 5] >> (h & 31)) & 1)) ++held;
+  }
+  return held == total;
+}
+
+// The class of a term whose map holds a non-finite entry (census word f),
+// at an output whose footprint holds all its inf entries or not.
+__device__ __forceinline__ float census_class(int f, bool inside) {
+  if ((f & kNaN) || (f & (kPosInf | kNegInf)) == (kPosInf | kNegInf) || !inside)
+    return __int_as_float(0x7fffffff);
+  return (f & kPosInf) ? INFINITY : -INFINITY;
+}
+
+// The census: one block per (chunk of kCensusRows low-res rows of a scale,
+// image) ORs the bits of each channel's entries there into its word. Where
+// the rows are dense in memory (channels innermost, no gap between rows, as
+// the network's channels-last maps are) the block reads them as one run
+// (census_run); elsewhere it reads channel by channel.
+__global__ void __launch_bounds__(kCensusThreads)
+pyramid_census_kernel(const __grid_constant__ PyramidParams p) {
+  extern __shared__ int s_bits[];   // [parts]
+  // the kernel that follows reads nothing this one writes: let it start
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int b = blockIdx.y, tid = threadIdx.x, parts = p.parts;
+  int s = 0, first = 0;
+  for (; s < p.n_scales - 1; ++s) {
+    const int n = (p.hl[s] + kCensusRows - 1) / kCensusRows;
+    if (static_cast<int>(blockIdx.x) < first + n) break;
+    first += n;
+  }
+  const int h0 = (blockIdx.x - first) * kCensusRows, wl = p.wl[s];
+  const int nh = min(kCensusRows, p.hl[s] - h0);
+  const long long sh = p.sh[s], sw = p.sw[s], sc = p.sc[s];
+  const float* m = p.maps[s] + b * p.sb[s] + h0 * sh;
+  for (int c = tid; c < parts; c += kCensusThreads) s_bits[c] = 0;
+  __syncthreads();
+  if (sc == 1 && sh == wl * sw && sw >= parts) {
+    census_run<kCensusThreads>(m, nh * sh, sw, parts, s_bits);
+  } else {
+    for (int i = tid; i < nh * wl * parts; i += kCensusThreads) {
+      const int c = i % parts, pix = i / parts;
+      const float v = __ldg(m + (pix / wl) * sh + (pix % wl) * sw + c * sc);
+      if (!isfinite(v)) atomicOr(s_bits + c, nonfinite_bits(v));
+    }
+  }
+  __syncthreads();
+  int* out = p.census + (static_cast<size_t>(b) * p.census_chunks + blockIdx.x) * parts;
+  for (int c = tid; c < parts; c += kCensusThreads) out[c] = s_bits[c];
+}
+
+// A group of channels of one image whose census is set: the rows and
+// columns of their inf entries from the whole maps into masks (s_mask,
+// zeroed here), then every output of those channels from the set scales'
+// classes alone: each output's blurred class and its 4 neighbours' (zero
+// outside the image), the NMS, and at a peak the averaged class. A finite
+// term adds nothing to a non-finite one (a convex weighting of finite
+// values cannot overflow), and the NMS of a field of classes needs only
+// the classes.
+__device__ __noinline__ void poisoned_channels(const PyramidParams& p, const int* s_census,
+                                               int* s_mask, int b, int c0, int nc) {
+  const int tid = threadIdx.x, H = p.out_h, W = p.out_w;
+  const int mwords = channel_mask_words(p);
+  for (int i = tid; i < kGroup * mwords; i += kThreads) s_mask[i] = 0;
+  __syncthreads();
+  for (int c = 0; c < nc; ++c) {
+    int* mask = s_mask + c * mwords;
+    for (int s = 0; s < p.n_scales; ++s) {
+      const int f = s_census[c * kMaxScales + s];
+      const int hl = p.hl[s], wl = p.wl[s], rw = mask_words(hl);
+      if (f && !(f & kNaN) && (f & (kPosInf | kNegInf)) != (kPosInf | kNegInf)) {
+        const float* m = p.maps[s] + b * p.sb[s] + (c0 + c) * p.sc[s];
+        for (int i = tid; i < hl * wl; i += kThreads) {
+          const int h = i / wl, w = i % wl;
+          if (!isfinite(__ldg(m + h * p.sh[s] + w * p.sw[s]))) {
+            atomicOr(mask + (h >> 5), 1 << (h & 31));
+            atomicOr(mask + rw + (w >> 5), 1 << (w & 31));
+          }
+        }
+      }
+      mask += rw + mask_words(wl);
+    }
+  }
+  __syncthreads();
+  // per scale, whether each output row's and column's footprint holds the
+  // inf entries' rows and columns: blurred rows [H], blurred columns [W],
+  // averaged rows [H], averaged columns [W]
+  unsigned char* s_lines = reinterpret_cast<unsigned char*>(s_mask + kGroup * mwords);
+  const int lines = 2 * (H + W);
+  for (int c = 0; c < nc; ++c) {
+    const int* flags = s_census + c * kMaxScales;
+    const int* masks = s_mask + c * mwords;
+    int any = 0;
+    bool all_nan = false;
+    for (int s = 0; s < p.n_scales; ++s) {
+      any |= flags[s];
+      all_nan = all_nan || (flags[s] & kNaN) ||
+                (flags[s] & (kPosInf | kNegInf)) == (kPosInf | kNegInf);
+    }
+    if (!any) continue;
+    float* out = p.out + (static_cast<size_t>(b) * p.parts + c0 + c) * H * W;
+    if (all_nan) {   // the blurred map is NaN everywhere: no peak
+      for (int i = tid; i < H * W; i += kThreads) out[i] = -INFINITY;
+      continue;
+    }
+    __syncthreads();   // the previous channel's lines are read
+    for (int i = tid; i < p.n_scales * (H + W); i += kThreads) {
+      const int s = i / (H + W), k = i % (H + W);
+      if (!flags[s]) continue;
+      const int* mask = masks;
+      for (int t = 0; t < s; ++t) mask += mask_words(p.hl[t]) + mask_words(p.wl[t]);
+      const int rw = mask_words(p.hl[s]), cw = mask_words(p.wl[s]);
+      unsigned char* line = s_lines + s * lines;
+      if (k < H) {
+        line[k] = band_holds(mask, rw, p.ay_start[s][k], p.ay_coef[s], p.ay_w[s], H, k);
+        line[H + W + k] = band_holds(mask, rw, p.wy_start[s][k], p.wy_coef[s], p.wy_w[s], H, k);
+      } else {
+        const int x = k - H;
+        line[H + x] = band_holds(mask + rw, cw, p.bx_start[s][x], p.bx_coef[s], p.bx_w[s], W, x);
+        line[2 * H + W + x] =
+            band_holds(mask + rw, cw, p.wx_start[s][x], p.wx_coef[s], p.wx_w[s], W, x);
+      }
+    }
+    __syncthreads();
+    // a map's value at (y, x): the set scales' classes, added in scale order
+    auto value = [&](int y, int x, int rows, int cols) {
+      float v = 0.f;
+      for (int s = 0; s < p.n_scales; ++s) {
+        const unsigned char* line = s_lines + s * lines;
+        if (flags[s]) v += census_class(flags[s], line[rows + y] && line[cols + x]) * p.inv_n;
+      }
+      return v;
+    };
+    for (int i = tid; i < H * W; i += kThreads) {
+      const int y = i / W, x = i % W;
+      const float sm = value(y, x, 0, H);
+      const float up = y > 0 ? value(y - 1, x, 0, H) : 0.f;
+      const float down = y < H - 1 ? value(y + 1, x, 0, H) : 0.f;
+      const float left = x > 0 ? value(y, x - 1, 0, H) : 0.f;
+      const float right = x < W - 1 ? value(y, x + 1, 0, H) : 0.f;
+      const bool peak = sm >= up && sm >= down && sm >= left && sm >= right && sm > p.thre1;
+      out[i] = peak ? value(y, x, H + W, 2 * H + W) : -INFINITY;
+    }
+  }
+}
+
+// After the kernel, on the same stream: one block per (group of channels,
+// image) ORs the census of its channels per scale; where it is clear the
+// block is done, and where it is set it writes those channels' outputs
+// again (poisoned_channels).
+__global__ void __launch_bounds__(kThreads)
+pyramid_poisoned_kernel(const __grid_constant__ PyramidParams p) {
+  extern __shared__ int s_fix[];
+  int* s_census = s_fix;                            // [channel][scale] census words
+  int* s_mask = s_fix + kGroup * kMaxScales;        // [channel] row and column masks
+  const int b = blockIdx.y, c0 = blockIdx.x * kGroup, nc = min(kGroup, p.parts - c0);
+  // the kernel's outputs, and through it the census, are complete and visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (threadIdx.x < kGroup * kMaxScales) s_census[threadIdx.x] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < nc * p.census_chunks; i += kThreads) {
+    const int c = i % nc, chunk = i / nc;
+    const int f = __ldg(p.census + (static_cast<size_t>(b) * p.census_chunks + chunk) * p.parts +
+                        c0 + c);
+    if (f) {
+      int s = 0;
+      for (int first = 0; s < p.n_scales - 1; ++s) {
+        first += (p.hl[s] + kCensusRows - 1) / kCensusRows;
+        if (chunk < first) break;
+      }
+      atomicOr(s_census + c * kMaxScales + s, f);
+    }
+  }
+  __syncthreads();
+  int poisoned = 0;
+  for (int i = 0; i < kGroup * kMaxScales; ++i) poisoned |= s_census[i];
+  if (poisoned) poisoned_channels(p, s_census, s_mask, b, c0, nc);
 }
 
 // __grid_constant__: the parameters are indexed by scale at run time and
@@ -303,6 +530,9 @@ pyramid_peaks_kernel(const __grid_constant__ PyramidParams p) {
       out[static_cast<size_t>(y0 - 1 + r) * W + px] = average_at(p, v, r, px, xa);
     }
   }
+  // launched beside the census: it ends after it, so that the pass after it
+  // finds the census complete
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 }  // namespace
@@ -313,11 +543,44 @@ extern "C" int tp_pyramid_peaks_smem(const PyramidParams* p) {
   return static_cast<int>(smem_floats(*p) * sizeof(float));
 }
 
-// Launch over (n_groups, n_bands, B * n_tiles) blocks. Returns
-// cudaErrorInvalidValue for more than 8 scales, a grid beyond its limits
-// or tables whose staged rows exceed a block's shared memory.
+// Chunks of kCensusRows low-res rows over all scales of one image.
+extern "C" int tp_pyramid_census_chunks(const PyramidParams* p) {
+  int chunks = 0;
+  for (int s = 0; s < p->n_scales; ++s) chunks += (p->hl[s] + kCensusRows - 1) / kCensusRows;
+  return chunks;
+}
+
+// The census alone, and the pass over the channels whose census is set
+// alone (to time them; tp_pyramid_peaks launches both).
+extern "C" int tp_pyramid_census(const PyramidParams* p, void* stream) {
+  if (p->census_chunks != tp_pyramid_census_chunks(p) || p->batch > 65535)
+    return cudaErrorInvalidValue;
+  pyramid_census_kernel<<<dim3(p->census_chunks, p->batch), kCensusThreads,
+                          p->parts * sizeof(int), static_cast<cudaStream_t>(stream)>>>(*p);
+  return cudaGetLastError();
+}
+
+extern "C" int tp_pyramid_poisoned(const PyramidParams* p, void* stream) {
+  const size_t fix_smem = fix_smem_bytes(*p);
+  if (p->census_chunks != tp_pyramid_census_chunks(p) || p->batch > 65535 ||
+      p->n_groups != (p->parts + kGroup - 1) / kGroup || fix_smem > 227 * 1024)
+    return cudaErrorInvalidValue;
+  cudaError_t err = tp_allow_smem(pyramid_poisoned_kernel, fix_smem);
+  if (err != cudaSuccess) return err;
+  pyramid_poisoned_kernel<<<dim3(p->n_groups, p->batch), kThreads, fix_smem,
+                            static_cast<cudaStream_t>(stream)>>>(*p);
+  return cudaGetLastError();
+}
+
+// Launch, on one stream, the census over (census_chunks, B) blocks, the
+// kernel over (n_groups, n_bands, B * n_tiles) blocks and the pass over
+// the channels whose census is set over (n_groups, B) blocks. Returns
+// cudaErrorInvalidValue for more than 8 scales, a grid beyond its limits,
+// tables whose staged rows exceed a block's shared memory or a census
+// buffer of another size.
 extern "C" int tp_pyramid_peaks(const PyramidParams* p, void* stream) {
   if (p->n_scales < 1 || p->n_scales > kMaxScales || p->parts < 1 ||
+      p->census_chunks != tp_pyramid_census_chunks(p) || p->batch > 65535 ||
       p->n_groups != (p->parts + kGroup - 1) / kGroup ||
       p->n_bands != (p->out_h + kOutRows - 1) / kOutRows ||
       p->n_tiles != (p->out_w + kColTile - 1) / kColTile ||
@@ -325,10 +588,33 @@ extern "C" int tp_pyramid_peaks(const PyramidParams* p, void* stream) {
     return cudaErrorInvalidValue;
   }
   const size_t smem = smem_floats(*p) * sizeof(float);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const size_t fix_smem = fix_smem_bytes(*p);
+  if (smem > 227 * 1024 || fix_smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t err = tp_allow_smem(pyramid_peaks_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p->n_groups, p->n_bands, p->batch * p->n_tiles);
-  pyramid_peaks_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(*p);
+  if ((err = tp_allow_smem(pyramid_poisoned_kernel, fix_smem)) != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t census_smem = p->parts * sizeof(int);
+  if (census_smem > 227 * 1024) return cudaErrorInvalidValue;
+  if ((err = tp_allow_smem(pyramid_census_kernel, census_smem)) != cudaSuccess) return err;
+  pyramid_census_kernel<<<dim3(p->census_chunks, p->batch), kCensusThreads, census_smem, s>>>(*p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // the kernel and the pass after it are launched as programmatic
+  // dependents: the kernel runs beside the census, the pass is set up
+  // while the kernel ends and waits for it
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p->n_groups, p->n_bands, p->batch * p->n_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, pyramid_peaks_kernel, *p)) != cudaSuccess) return err;
+  cfg.gridDim = dim3(p->n_groups, p->batch);
+  cfg.dynamicSmemBytes = fix_smem;
+  if ((err = cudaLaunchKernelEx(&cfg, pyramid_poisoned_kernel, *p)) != cudaSuccess) return err;
   return cudaGetLastError();
 }

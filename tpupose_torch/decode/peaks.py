@@ -12,7 +12,7 @@ more (the reference's ``peak_tables``); ``peak_tables`` is the decode's
 guarded form (the reference's ``peak_tables_tiered``): when ANY row of
 the whole call holds more than ``max_peaks`` peaks, every row switches to
 score-descending order, with ties — including the ``-inf`` filler —
-lowest index first, as ``lax.top_k`` orders them.
+lowest index first and NaN last, as ``lax.top_k`` orders them.
 """
 
 from __future__ import annotations
@@ -118,9 +118,19 @@ def _tuple(tables: dict[str, torch.Tensor]) -> tuple[torch.Tensor, ...]:
 
 def sorted_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.Tensor]:
     """``peak_tables`` in score-descending order whatever the counts, ties
-    lowest index first."""
-    top, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
-    top, idx = top[:, :max_peaks], idx[:, :max_peaks]
+    lowest index first, and a NaN score below -inf: the order
+    ``lax.top_k`` gives on the reference's CPU, which ranks floats by their
+    bits and puts the NaN that ``0 * inf`` makes there (sign bit set) last.
+    A NaN at a peak only arises so (a peak needs a blurred value that is
+    not NaN, so its map holds no NaN, only an inf), and it ranks last here
+    whatever its bits, on every device. The sort key is f64, where -inf of
+    the scores becomes the least finite f64 and NaN -inf."""
+    key = flat.to(torch.float64)
+    key = torch.where(torch.isneginf(key), torch.finfo(torch.float64).min, key)
+    key = torch.where(torch.isnan(key), -torch.inf, key)
+    _, idx = torch.sort(key, dim=-1, descending=True, stable=True)
+    idx = idx[:, :max_peaks]
+    top = torch.gather(flat, -1, idx)
     ok = torch.isfinite(top)
     return {
         "xs": (idx % w).to(torch.int32),

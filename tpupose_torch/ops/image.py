@@ -8,10 +8,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpupose_torch.config import InferenceConfig, ModelConfig
+from tpupose_torch.decode.scalespace import census, holds, line_classes
 
 PAD_NORM = 128.0 / 256.0 - 0.5  # the gray pad value in normalised space (0.0)
 
@@ -75,13 +77,83 @@ def upsample_to(maps: torch.Tensor, rh: int, rw: int, out_h: int, out_w: int,
     return upsample_to_batch(maps, rh, rw, out_h, out_w, stride)[0]
 
 
+_SUPPORTS: dict = {}
+
+
+def resize_support(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) 0/1 f32 pattern of the non-zero weights of the
+    reference's linear resize along one axis: ``jax.image.resize``'s
+    weight matrix, whose taps are the inputs within one pixel of the
+    sample position, computed in f32 as it computes it. Kept per device,
+    so that no call copies it from the host."""
+    key = (n_in, n_out, str(device))
+    hit = _SUPPORTS.get(key)
+    if hit is None:
+        inv = np.float32(1.0 / (n_out / n_in))
+        sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv - np.float32(0.5)
+        dist = np.abs(sample[:, None] - np.arange(n_in, dtype=np.float32)[None, :])
+        hit = _SUPPORTS[key] = torch.from_numpy((dist < 1).astype(np.float32)).to(device)
+    return hit
+
+
+_WHOLE: dict = {}
+
+
+def _whole(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out,) bool: the outputs of a resize whose footprint holds every
+    input. Kept per device, as ``resize_support``."""
+    key = (n_in, n_out, str(device))
+    if key not in _WHOLE:
+        _WHOLE[key] = resize_support(n_in, n_out, device).bool().all(dim=1)
+    return _WHOLE[key]
+
+
+def upsample_terms(maps: torch.Tensor, rh: int, rw: int, out_h: int, out_w: int,
+                   stride: int = 8):
+    """``upsample_to_batch`` in three parts: the upsample of ``maps`` with
+    their non-finite entries read as 0 (B, out_h, out_w, C), and the rows'
+    (B, out_h, 1, C) and columns' (B, 1, out_w, C) shares of the contract's
+    classes (``decode.scalespace.line_classes``; -0.0 for a channel without
+    a non-finite entry). Their sum is the upsample: on a finite map the
+    interpolation's values, unchanged; elsewhere the classes that the
+    reference's two dense resizes give, in turn, with the crop between them
+    (an axis whose size a resize keeps is skipped, as the reference skips
+    it, and its rows stand alone)."""
+    ph, pw = maps.shape[1], maps.shape[2]
+    dev = maps.device
+    code, rows, cols = census(maps)
+    # the x``stride`` resize: an output is the code where its footprint holds
+    # every non-finite entry, NaN elsewhere (a clean channel's code, -0.0,
+    # everywhere); then the crop
+    r1 = line_classes(code, holds(resize_support(ph, ph * stride, dev), rows, -3))[:, :rh]
+    c1 = line_classes(code, holds(resize_support(pw, pw * stride, dev), cols, -2))[:, :, :rw]
+    # the resize to the image: a contracted axis meets every entry of the
+    # crop, which is NaN where one share is, else the code (amax keeps both,
+    # and a clean channel's -0.0), and an output keeps it where its
+    # footprint holds the whole crop (a clean channel's -0.0 everywhere)
+    r2, c2 = r1, c1
+    if out_h != rh:
+        crop = r1.amax(dim=1, keepdim=True)
+        if out_w != rw:
+            crop = crop + c1.amax(dim=2, keepdim=True)
+        r2 = line_classes(crop, _whole(rh, out_h, dev)[None, :, None, None] | (crop == 0))
+    if out_w != rw:
+        crop = c1.amax(dim=2, keepdim=True)
+        c2 = line_classes(crop, _whole(rw, out_w, dev)[None, None, :, None] | (crop == 0))
+    src = torch.where(torch.isfinite(maps), maps, torch.zeros_like(maps))
+    up = resize_bilinear(resize_bilinear(src, ph * stride, pw * stride)[:, :rh, :rw, :],
+                         out_h, out_w)
+    return up, r2.to(up.dtype), c2.to(up.dtype)
+
+
 def upsample_to_batch(maps: torch.Tensor, rh: int, rw: int, out_h: int, out_w: int,
                       stride: int = 8) -> torch.Tensor:
     """``upsample_to`` over a kept batch axis: (B, ph/stride, pw/stride,
-    C) -> (B, out_h, out_w, C)."""
-    ph, pw = maps.shape[1], maps.shape[2]
-    full = resize_bilinear(maps, ph * stride, pw * stride)
-    return resize_bilinear(full[:, :rh, :rw, :], out_h, out_w)
+    C) -> (B, out_h, out_w, C). A non-finite value follows the contract of
+    ``decode.scalespace`` through each of the two resizes in turn, as the
+    reference's dense resizes carry it (``upsample_terms``)."""
+    up, rows, cols = upsample_terms(maps, rh, rw, out_h, out_w, stride)
+    return up.add_(rows).add_(cols)
 
 
 def average_upsampled(maps, sizes, out_h: int, out_w: int, stride: int = 8) -> torch.Tensor:
@@ -89,13 +161,18 @@ def average_upsampled(maps, sizes, out_h: int, out_w: int, stride: int = 8) -> t
     ``scale_sizes`` entry) -> their (B, out_h, out_w, C) f32 average at the
     image size: ``upsample_to_batch`` of each scale divided by the number
     of scales, summed in scale order. The divisor is a tensor, so the
-    quotient is a true division on every device."""
+    quotient is a true division on every device. The scales' class shares
+    (``upsample_terms``) are added once, to the sum."""
     ns = torch.tensor(float(len(sizes)), device=maps[0].device)
-    avg = None
+    avg = rows = cols = None
     for m, (rh, rw, _, _) in zip(maps, sizes):
-        up = upsample_to_batch(m.to(torch.float32), rh, rw, out_h, out_w, stride) / ns
+        up, r, c = upsample_terms(m.to(torch.float32), rh, rw, out_h, out_w, stride)
+        up = up / ns
         avg = up if avg is None else avg + up
-    return avg
+        # the scales' shares of the classes add as the classes do
+        rows = r if rows is None else rows + r
+        cols = c if cols is None else cols + c
+    return avg.add_(rows).add_(cols)
 
 
 def pyramid_sizes(cfg: InferenceConfig, model: ModelConfig, h: int, w: int):

@@ -28,9 +28,9 @@ from tpupose_torch.ops._build import CudaKernel
 
 _MAX_SCALES = 8
 _SMEM_LIMIT = 227 * 1024
-# csrc/pyramid_peaks.cu: kRows, kThreads, kGroup, kPeakList, kLPitch (a card test holds
-# smem_bytes to the kernel's own count)
-_ROWS, _THREADS, _GROUP, _PEAK_LIST = 16, 384, 3, 1024
+# csrc/pyramid_peaks.cu: kRows, kThreads, kGroup, kPeakList, kLPitch, kCensusRows (card
+# tests hold smem_bytes and census_chunks to the kernel's own counts)
+_ROWS, _THREADS, _GROUP, _PEAK_LIST, _CENSUS_ROWS = 16, 384, 3, 1024, 8
 _OUT_ROWS, _COL_TILE, _LPITCH = _ROWS - 2, _THREADS - 2, _ROWS + 4
 _PTRS = ctypes.c_void_p * _MAX_SCALES
 _INTS = ctypes.c_int * _MAX_SCALES
@@ -51,6 +51,8 @@ class _Params(ctypes.Structure):
         ("hcap", _INTS), ("wcap", _INTS),
         ("inv_n", ctypes.c_float), ("thre1", ctypes.c_float),
         ("out", ctypes.c_void_p),
+        ("hl", _INTS), ("wl", _INTS),
+        ("census", ctypes.c_void_p), ("census_chunks", ctypes.c_int),
     ]
 
 
@@ -146,6 +148,12 @@ def bands(shapes: tuple, out_hw: tuple, sigma: float) -> list[dict]:
     return _BANDS[key]
 
 
+def census_chunks(shapes: tuple) -> int:
+    """Census words per image and channel: chunks of the kernel's census
+    rows over every scale's low-res rows."""
+    return sum(-(-hl // _CENSUS_ROWS) for hl, _, _, _ in shapes)
+
+
 def smem_bytes(shapes: tuple, out_hw: tuple, sigma: float) -> int:
     """Shared memory a block of the kernel asks for at this geometry
     (``scale_shapes`` of the maps, the image size, the blur); raises
@@ -207,7 +215,10 @@ def _pyramid_cuda(maps, geoms, out_h, out_w, parts, sigma, thre1):
         raise ValueError(f"pyramid_peak_scores: {b} images of width {out_w} exceed the grid")
     out = torch.empty((b, parts, out_h * out_w), dtype=torch.float32, device=dev)
     if out.numel():
-        p = _params(ScaleSpace(maps, space.geoms, space.out_hw), parts, float(sigma), thre1, out)
+        census = torch.empty((b, census_chunks(scale_shapes(space)), parts), dtype=torch.int32,
+                             device=dev)
+        p = _params(ScaleSpace(maps, space.geoms, space.out_hw), parts, float(sigma), thre1, out,
+                    census)
         KERNEL.launch(dev, ctypes.byref(p))
     return out
 
@@ -247,9 +258,10 @@ def pyramid_peak_scores(space: ScaleSpace, parts: int = 18, sigma: float = 3.0,
 
 
 def _params(space: ScaleSpace, parts: int, sigma: float, thre1: float,
-            out: torch.Tensor) -> _Params:
+            out: torch.Tensor, census: torch.Tensor | None = None) -> _Params:
     """The kernel's parameters: f32 maps on one CUDA device, read through
-    their strides, and the device's band tables of their geometry."""
+    their strides, the device's band tables of their geometry, and the
+    int32 (B, ``census_chunks``, parts) buffer the census kernel fills."""
     maps = space.maps
     shapes = scale_shapes(space)
     tables = bands(shapes, space.out_hw, sigma)
@@ -268,6 +280,9 @@ def _params(space: ScaleSpace, parts: int, sigma: float, thre1: float,
             getattr(p, f"{name}_coef")[s] = coef.data_ptr()
             getattr(p, f"{name}_w")[s] = coef.shape[0]
         p.hcap[s], p.wcap[s] = tab["hcap"], tab["wcap"]
+        p.hl[s], p.wl[s] = m.shape[1], m.shape[2]
+    p.census = 0 if census is None else census.data_ptr()
+    p.census_chunks = census_chunks(shapes)
     p.inv_n = 1.0 / len(maps)
     p.thre1 = thre1
     p.out = out.data_ptr()

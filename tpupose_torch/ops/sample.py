@@ -15,11 +15,14 @@ import ctypes
 import numpy as np
 import torch
 
-from tpupose_torch.decode.scalespace import ScaleSpace
+from tpupose_torch.decode.scalespace import (
+    ScaleSpace, census, holds, line_classes, tap_footprint,
+)
 from tpupose_torch.ops._build import CudaKernel
 
 _MAX_SCALES = 8
 _STRIDE = 8
+_CENSUS_ROWS = 2            # csrc/sample.cu kCensusRows
 
 
 class _Params(ctypes.Structure):
@@ -34,6 +37,8 @@ class _Params(ctypes.Structure):
         ("iy", ctypes.c_void_p), ("ix", ctypes.c_void_p),
         ("chans", ctypes.c_void_p), ("out", ctypes.c_void_p),
         ("tap_w", ctypes.c_void_p), ("tap_i", ctypes.c_void_p),
+        ("census", ctypes.c_void_p), ("census_words", ctypes.c_int),
+        ("channels", ctypes.c_int), ("census_chunks", ctypes.c_int),
     ]
 
 
@@ -110,14 +115,29 @@ def _device_tap_table(space, device):
     return hit
 
 
+def census_words(low_sizes) -> int:
+    """Words of the kernel's census record of one (image, channel): per
+    scale (hl, wl) a word and a mask of its rows and of its columns, a bit
+    per low-res row or column."""
+    return sum(1 + -(-hl // 32) + -(-wl // 32) for hl, wl in low_sizes)
+
+
+def census_chunks(low_rows) -> int:
+    """The direct variant's census words per image and channel: chunks of
+    the kernel's census rows (2) over every scale's low-res rows."""
+    return sum(-(-hl // _CENSUS_ROWS) for hl in low_rows)
+
+
 def staged_bytes(space) -> int:
     """Shared memory the staged variant needs for ``space``: one image's
-    channel pair of every scale and the tap table. The launcher takes the
-    direct variant where this exceeds what a block may opt in to (227 KB
-    on the H100)."""
+    channel pair of every scale, the tap table and the census records of
+    the pair. The launcher takes the direct variant where this exceeds what a
+    block may opt in to (227 KB on the H100)."""
     out_h, out_w = space.out_hw
     pixels = sum(m.shape[1] * m.shape[2] for m in space.maps)
-    return pixels * 8 + _MAX_SCALES * 4 + len(space.maps) * (out_h + out_w + 4) * 24
+    record = census_words([m.shape[1:3] for m in space.maps])
+    return (pixels * 8 + _MAX_SCALES * 4 + 2 * record * 4
+            + len(space.maps) * (out_h + out_w + 4) * 24)
 
 
 def _device_chans(pairs: list[int], device):
@@ -133,8 +153,41 @@ def _device_chans(pairs: list[int], device):
     return hit
 
 
+def _footprints(n: int, size_mid: int, size_low: int, device) -> torch.Tensor:
+    """(n + 2, size_low) 0/1 f32: the footprint of each coordinate -1 .. n
+    along one axis, its taps of non-zero weight (``tap_footprint``); a
+    point beyond an edge has the footprint of the coordinate just beyond."""
+    idx, w = axis_taps(torch.arange(-1, n + 1, dtype=torch.int32, device=device),
+                       size_mid, size_low, n)
+    out = torch.zeros((n + 2, size_low), dtype=torch.float32, device=device)
+    return out.scatter_add_(1, idx.to(torch.int64), tap_footprint(idx, w).to(torch.float32))
+
+
+def _nonfinite_points(v, m, iy, ix, geom, out_hw, ch):
+    """One scale's point values ``v`` (B, L, P, 2) under the non-finite
+    contract of ``decode.scalespace``: per (image, channel) of the
+    (B, Hl, Wl, C) map ``m``, the census of its non-finite entries and
+    whether the low-res rows (columns) that hold them all lie in a
+    coordinate's footprint, looked up at the points (B, L, P)."""
+    b, hl, wl, c = m.shape
+    code, rows, cols = census(m)
+    img = torch.arange(b, device=m.device).view(b, 1, 1, 1)
+    at = img * c + ch                                          # (B, L, 1, 2)
+    inside = None
+    for q, n, mid, low, lines, axis in ((iy, out_hw[0], geom[0], hl, rows, -3),
+                                        (ix, out_hw[1], geom[1], wl, cols, -2)):
+        # (B, n + 2, C) in either layout: a coordinate's footprint holds them
+        ok = holds(_footprints(n, mid, low, m.device), lines, axis).reshape(-1)
+        line = (torch.clamp(q, -1, n) + 1).to(torch.int64)[..., None]
+        ok = ok[(img * (n + 2) + line) * c + ch]
+        inside = ok if inside is None else inside & ok
+    code = code.reshape(-1)[at]
+    return torch.where(code == 0, v, line_classes(code, inside))
+
+
 def sample_avg_plain(space, iy, ix, chans):
-    """Gather formulation of the readout, in torch (see ``sample_avg``)."""
+    """Gather formulation of the readout, in torch (see ``sample_avg``),
+    with the non-finite contract of ``decode.scalespace``."""
     out_h, out_w = space.out_hw
     b, groups = iy.shape[:2]
     shape = iy.shape
@@ -143,7 +196,8 @@ def sample_avg_plain(space, iy, ix, chans):
     acc = None
     for m, (rh, rw) in zip(space.maps, space.geoms):
         hl, wl, c = m.shape[-3:]
-        flat = m.to(torch.float32).reshape(-1)
+        m32 = m.to(torch.float32)
+        flat = m32.reshape(-1)
         y_idx, y_w = axis_taps(iyf, rh, hl, out_h)
         x_idx, x_w = axis_taps(ixf, rw, wl, out_w)
         base = torch.arange(b, device=m.device).view(b, 1, 1) * (hl * wl)
@@ -158,6 +212,7 @@ def sample_avg_plain(space, iy, ix, chans):
                 r = term if r is None else r + term
             term = y_w[..., a, None] * r
             v = term if v is None else v + term
+        v = _nonfinite_points(v, m32, iyf, ixf, (rh, rw), space.out_hw, ch)
         acc = v if acc is None else acc + v
     return (acc / float(len(space.maps))).reshape(*shape, 2)
 
@@ -174,12 +229,13 @@ def _sample_op(maps: list[torch.Tensor], geoms: list[int], out_h: int, out_w: in
     return sample_avg_plain(_space(maps, geoms, out_h, out_w), iy, ix, pairs).contiguous()
 
 
-@_sample_op.register_kernel("cuda")
-def _sample_cuda(maps, geoms, out_h, out_w, iy, ix, chans):
-    space = _space(maps, geoms, out_h, out_w)
+def launch_params(space, iy: torch.Tensor, ix: torch.Tensor, chans: list[int]):
+    """The kernel's parameters for CUDA tensors: (params, output, the tensors
+    they point into, which the caller keeps alive until the launch is
+    enqueued)."""
     dev = iy.device
     b = iy.shape[0]
-    maps = [m.to(torch.float32).contiguous() for m in maps]
+    maps = [m.to(torch.float32).contiguous() for m in space.maps]
     iyc = iy.to(torch.int32).contiguous()
     ixc = ix.to(torch.int32).contiguous()
     ch = _device_chans(chans, dev)
@@ -188,7 +244,7 @@ def _sample_cuda(maps, geoms, out_h, out_w, iy, ix, chans):
     p.n_scales = len(maps)
     p.batch = b
     p.groups = iy.shape[1]
-    p.out_h, p.out_w = out_h, out_w
+    p.out_h, p.out_w = space.out_hw
     p.points = iy[0, 0].numel()
     for s, m in enumerate(maps):
         p.hl[s], p.wl[s], p.cstride[s] = m.shape[1], m.shape[2], m.shape[3]
@@ -202,8 +258,20 @@ def _sample_cuda(maps, geoms, out_h, out_w, iy, ix, chans):
                    and all(m.shape[3] % 2 == 0 and m.data_ptr() % 8 == 0 for m in maps))
     tap_w, tap_i = _device_tap_table(space, dev)
     p.tap_w, p.tap_i = tap_w.data_ptr(), tap_i.data_ptr()
+    # the direct variant's census words, written by its census kernel
+    p.census_words = census_words([m.shape[1:3] for m in maps])
+    p.channels = max(m.shape[3] for m in maps)
+    p.census_chunks = census_chunks([m.shape[1] for m in maps])
+    census = torch.empty((b, p.census_chunks, p.channels), dtype=torch.int32, device=dev)
+    p.census = census.data_ptr()
+    return p, out, (maps, iyc, ixc, census)
+
+
+@_sample_op.register_kernel("cuda")
+def _sample_cuda(maps, geoms, out_h, out_w, iy, ix, chans):
+    p, out, _keep = launch_params(_space(maps, geoms, out_h, out_w), iy, ix, chans)
     if out.numel():
-        KERNEL.launch(dev, ctypes.byref(p))
+        KERNEL.launch(iy.device, ctypes.byref(p))
     return out
 
 
