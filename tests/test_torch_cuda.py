@@ -1017,3 +1017,58 @@ def test_bench_device_rate_and_latency_launch_the_inference_kernels(cuda):
     # 3 program calls at 4 scales, then 1 + 3 + 1 + 3 at scale 1.0
     assert counts == {"block1": 3 * 4 + 8, "pyramid_peaks": 11, "sample": 11, "assoc": 11,
                       "gt": 0, "peaks": 0}, counts
+
+
+# --- the program's spans ----------------------------------------------------------------------
+
+
+def test_program_spans_are_user_annotations_on_the_kernels_time_base(cuda, monkeypatch):
+    """A 4-scale stream under ``posebench.trace.profiled``: every device
+    mirror of the program's spans is a user annotation, so ``busy_s``,
+    ``by_kernel`` and the breakdown leave it out; the host spans and the
+    kernels share one time base (each kernel falls between the first span's
+    start and the last span's end); the store counts one span a batch."""
+    from posebench.trace import WINDOW, _is_device, _is_kernel, profiled
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.utils import profiling
+
+    names = ("infer.enqueue", "decode.overflow_switch", "infer.finish")
+    est = PoseEstimator(seed=0, device=cuda)
+    batches = [np.random.default_rng(i).integers(0, 255, (2, 240, 320, 3)).astype(np.uint8)
+               for i in range(3)]
+    for _ in est.stream(iter(batches), depth=1):                     # builds and warms
+        pass
+    torch.cuda.synchronize()
+    kept = []
+
+    class Kept(torch.profiler.profile):
+        def __enter__(self):
+            kept.append(self)
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.profiler, "profile", Kept)
+
+    def window(span):
+        with span(WINDOW):
+            for _ in est.stream(iter(batches), depth=1):
+                pass
+            torch.cuda.synchronize()
+        return {}
+
+    profiling.reset_spans()
+    trace = profiled(window, ())
+    totals = profiling.span_totals()
+    assert {k: totals[k]["count"] for k in names} == dict.fromkeys(names, len(batches))
+    assert not set(trace.by_kernel) & set(names)
+    assert not {name for name, _ in trace.breakdown()["device_ops"]} & set(names)
+    assert 0 < trace.busy_s <= trace.window_s
+    events = kept[0].events()
+    mirrors = [e for e in events if e.name in names and _is_device(e)]
+    assert any(e.name == "infer.enqueue" for e in mirrors)
+    assert all(e.is_user_annotation and not _is_kernel(e, (WINDOW,)) for e in mirrors)
+    host = [e for e in events if e.name in names and not _is_device(e)]
+    kernels = [e for e in events if _is_kernel(e, (WINDOW,))]
+    t0 = min(e.time_range.start for e in host)
+    t1 = max(e.time_range.end for e in host)
+    assert kernels and all(t0 <= k.time_range.start and k.time_range.end <= t1 for k in kernels)
+    profiling.reset_spans()

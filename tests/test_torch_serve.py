@@ -44,8 +44,8 @@ from tpupose.serve import serve as jax_serve
 from tpupose_torch.buckets import DEFAULT_BUCKETS
 from tpupose_torch.infer import PoseEstimator
 from tpupose_torch.serve import (
-    MicroBatcher, Overloaded, RequestTimeout, RssWatchdog, _decode_png, _run_until_exit,
-    rss_mb, serve, warmup_estimator,
+    MicroBatcher, Overloaded, RequestTimeout, RssWatchdog, ServeMetrics, _decode_png,
+    _run_until_exit, rss_mb, serve, warmup_estimator,
 )
 from tpupose_torch.testing import limit_threads
 
@@ -354,6 +354,38 @@ def test_metrics_batch_engagement():
         srv.shutdown()
         srv.batcher.close()
 
+
+def test_metrics_queue_wait_of_the_batcher():
+    """A request queued behind a held batch waits until the worker takes
+    it; ``/metrics`` reports the waits' percentiles."""
+    started, release = threading.Event(), threading.Event()
+
+    class Held:
+        def process_batch(self, imgs, scales=None):
+            started.set()
+            release.wait(10.0)
+            return [[] for _ in range(len(imgs))]
+
+    metrics = ServeMetrics()
+    assert metrics.snapshot()["queue_wait_ms"] == {"p50": None, "p90": None, "p99": None}
+    mb = MicroBatcher(Held(), max_batch=1, window_ms=0.0, metrics=metrics)
+    try:
+        img = np.zeros((8, 8, 3), np.uint8)
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            first = ex.submit(mb.submit, img)
+            assert started.wait(10.0)
+            second = ex.submit(mb.submit, img)
+            deadline = time.monotonic() + 10.0
+            while mb.depth < 1 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            time.sleep(0.1)
+            release.set()
+            assert first.result(timeout=10.0) == [] and second.result(timeout=10.0) == []
+        wait = metrics.snapshot()["queue_wait_ms"]
+        assert wait["p99"] >= 100.0 and wait["p50"] <= wait["p99"]
+    finally:
+        release.set()
+        mb.close()
 
 def test_microbatch_server_correctness(estimators):
     """Concurrent clients against a micro-batching server each get what

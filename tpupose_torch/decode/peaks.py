@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from tpupose_torch import topology
+from tpupose_torch.utils.profiling import annotate, count
 
 
 def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
@@ -93,8 +94,10 @@ def peak_tables(flat: torch.Tensor, w: int, max_peaks: int,
     """(R, N) masked scores (-inf off-peak) -> (R, K) peak tables.
 
     Returns xs/ys int32, scores f32 (0 in empty slots) and valid bool.
-    The overflow decision is global over the R rows (one host sync), or
-    ``overflow`` when the caller decided it over a larger batch. Under
+    The overflow decision is global over the R rows (one host sync, the
+    span ``decode.overflow_switch``), or ``overflow`` when the caller
+    decided it over a larger batch; the counters ``decode.tables.sorted``
+    and ``decode.tables.scan`` count the orders taken. Under
     ``torch.export`` the decision stays on the device: both orders are in
     the program, as the two branches of a ``torch.cond``.
     """
@@ -105,7 +108,9 @@ def peak_tables(flat: torch.Tensor, w: int, max_peaks: int,
             out = torch.cond(overflow, lambda f: _tuple(sorted_tables(f, w, k)),
                              lambda f: _tuple(scan_tables(f, w, k)), (flat,))
             return dict(zip(_TABLE_KEYS, out))
-        overflow = bool(overflow)
+        with annotate("decode.overflow_switch"):
+            overflow = bool(overflow)
+    count("decode.tables.sorted" if overflow else "decode.tables.scan")
     return sorted_tables(flat, w, k) if overflow else scan_tables(flat, w, k)
 
 

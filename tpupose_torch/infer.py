@@ -26,6 +26,7 @@ decode's f32 products are f32, as in the reference.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Iterable, Iterator
 
 import numpy as np
@@ -37,9 +38,20 @@ from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.models import OpenPose, weights as weights_lib
 from tpupose_torch.models.openpose import DTYPES
 from tpupose_torch.ops import image as image_ops
+from tpupose_torch.utils.profiling import annotate
 
 
 READOUTS = ("scalespace", "fullres")
+
+
+class Tables(dict):
+    """One batch's device tables, with its sequence number ``seq`` on its
+    estimator: the ``args`` of the batch's ``infer.enqueue`` and
+    ``infer.finish`` spans, which joins them."""
+
+    def __init__(self, tables: dict[str, torch.Tensor], seq: int):
+        super().__init__(tables)
+        self.seq = seq
 
 
 class PoseEstimator:
@@ -80,6 +92,7 @@ class PoseEstimator:
             self.model.load_state_dict(weights_lib.from_flax(params))
             self.pretrained = True
         self.model.to(self.device, memory_format=torch.channels_last).eval()
+        self._batches = itertools.count()
 
     # --- the batched program ---------------------------------------------------
 
@@ -188,9 +201,12 @@ class PoseEstimator:
 
     def process_batch_async(self, images: np.ndarray, scales: tuple[float, ...] | None = None,
                             valid_hw: np.ndarray | None = None):
-        """Enqueue the batched program; returns (n, device tables).
+        """Enqueue the batched program; returns (n, device ``Tables``).
         Resolve with ``PoseEstimator._finish(n, tables)``."""
-        return images.shape[0], self._run(images, scales, valid_hw)
+        seq = next(self._batches)
+        with annotate("infer.enqueue", seq):
+            tables = self._run(images, scales, valid_hw)
+        return images.shape[0], Tables(tables, seq)
 
     def stream(self, batches: Iterable[np.ndarray], depth: int = 2,
                scales: tuple[float, ...] | None = None) -> Iterator[list[list[dict]]]:
@@ -205,8 +221,9 @@ class PoseEstimator:
 
     @staticmethod
     def _finish(n: int, tables: dict[str, torch.Tensor]) -> list[list[dict]]:
-        host = {k: v.cpu().numpy() for k, v in tables.items()}
-        return [to_people({k: v[i] for k, v in host.items()}) for i in range(n)]
+        with annotate("infer.finish", getattr(tables, "seq", None)):
+            host = {k: v.cpu().numpy() for k, v in tables.items()}
+            return [to_people({k: v[i] for k, v in host.items()}) for i in range(n)]
 
     @torch.inference_mode()
     def maps_batch(self, images: np.ndarray, scales: tuple[float, ...] | None = None

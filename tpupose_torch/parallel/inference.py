@@ -27,6 +27,7 @@ import torch.distributed as dist
 
 from tpupose_torch.decode.peaks import overflowed
 from tpupose_torch.parallel.sharding import Mesh, kept_replicas, local_devices, make_mesh
+from tpupose_torch.utils.profiling import annotate
 
 
 def _replica(est: Any, model: torch.nn.Module, device: torch.device):
@@ -60,7 +61,8 @@ def run_chunks(replicas: Sequence[Any], images: np.ndarray, scales, valid_hw,
     with torch.inference_mode():
         flag = torch.stack([overflowed(flats.reshape(-1, flats.shape[-1]), k).to(home)
                             for flats, _, _ in scored]).any()
-    overflow = decide(flag) if decide is not None else bool(flag)
+    with annotate("decode.overflow_switch"):
+        overflow = decide(flag) if decide is not None else bool(flag)
     tables = [rep._tables(s, overflow) for rep, s in zip(replicas, scored)]
     return {key: torch.cat([t[key].to(home) for t in tables]) for key in tables[0]}
 

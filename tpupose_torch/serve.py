@@ -5,7 +5,8 @@ one ``PoseEstimator``. Endpoints:
 
   GET  /healthz          -> {"status": "ok", "pretrained": bool}
   GET  /metrics          -> request/error counts, latency p50/p90/p99,
-                            micro-batch engagement (mean device batch)
+                            micro-batch engagement (mean device batch),
+                            queue wait p50/p90/p99 (micro-batched mode)
   POST /pose             -> people JSON for one encoded (png/jpg) image
   POST /pose?draw=1      -> adds a base64 PNG skeleton overlay
 
@@ -230,7 +231,7 @@ class MicroBatcher:
             return len(self._queue)
 
     def submit(self, image: np.ndarray, timeout_s: float | None = None) -> list[dict]:
-        slot: dict = {"done": threading.Event()}
+        slot: dict = {"done": threading.Event(), "queued": time.perf_counter()}
         with self._cv:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
@@ -275,11 +276,14 @@ class MicroBatcher:
                         break
                     self._cv.wait(timeout=remaining)
                 batch = []
+                taken = time.perf_counter()
                 while self._queue and len(batch) < self._max:
                     img, slot = self._queue.pop(0)
                     if slot.get("abandoned"):   # deadline already missed
                         continue
                     batch.append((img, slot))
+                    if self._metrics is not None:
+                        self._metrics.record_queue_wait(taken - slot["queued"])
                 if not batch:
                     continue
             try:
@@ -383,13 +387,37 @@ class RssWatchdog(threading.Thread):
         self._stop.set()
 
 
+class _Recent:
+    """The last ``size`` samples (a ring) and their percentiles."""
+
+    def __init__(self, size: int):
+        self._size = size
+        self._values: list[float] = []
+        self._pos = 0
+
+    def add(self, value: float) -> None:
+        if len(self._values) < self._size:
+            self._values.append(value)
+        else:
+            self._values[self._pos] = value
+            self._pos = (self._pos + 1) % self._size
+
+    def percentiles_ms(self) -> dict:
+        """p50/p90/p99 of the samples (seconds) in ms; None when empty."""
+        v = sorted(self._values)
+        n = len(v)
+        pick = lambda q: (v[min(n - 1, int(q * n))] * 1e3) if n else None  # noqa: E731
+        return {"p50": pick(0.50), "p90": pick(0.90), "p99": pick(0.99)}
+
+
 class ServeMetrics:
     """Lock-guarded serving counters for the ``/metrics`` endpoint.
 
     Request count, errors (server 5xx apart from client 4xx, so that the
-    alertable signal does not climb on junk uploads), a bounded reservoir
+    alertable signal does not climb on junk uploads), bounded reservoirs
     of recent request latencies (wall, from the body read to the reply)
-    and the device-batch sizes the micro-batcher ran.
+    and of the micro-batcher's queue waits (from ``submit`` to its worker
+    taking the request), and the device-batch sizes the micro-batcher ran.
     """
 
     RESERVOIR = 1024
@@ -401,8 +429,8 @@ class ServeMetrics:
         self.client_errors = 0   # 4xx: bad requests (junk bodies, 413s)
         self.shed = 0            # 503: overload shedding (bounded queue)
         self.timeouts = 0        # 504: missed request deadlines
-        self._lat: list[float] = []   # ring buffer, seconds
-        self._lat_pos = 0
+        self._lat = _Recent(self.RESERVOIR)
+        self._wait = _Recent(self.RESERVOIR)
         self.batches = 0
         self.batched_images = 0
 
@@ -417,11 +445,11 @@ class ServeMetrics:
                 self.errors += 1
             elif status >= 400:
                 self.client_errors += 1
-            if len(self._lat) < self.RESERVOIR:
-                self._lat.append(seconds)
-            else:
-                self._lat[self._lat_pos] = seconds
-                self._lat_pos = (self._lat_pos + 1) % self.RESERVOIR
+            self._lat.add(seconds)
+
+    def record_queue_wait(self, seconds: float) -> None:
+        with self._lock:
+            self._wait.add(seconds)
 
     def record_batch(self, n_images: int) -> None:
         with self._lock:
@@ -430,16 +458,14 @@ class ServeMetrics:
 
     def snapshot(self) -> dict:
         with self._lock:
-            lat = sorted(self._lat)
-            n = len(lat)
-            pick = lambda q: (lat[min(n - 1, int(q * n))] * 1e3) if n else None  # noqa: E731
             return {
                 "requests": self.requests,
                 "errors": self.errors,
                 "client_errors": self.client_errors,
                 "shed": self.shed,
                 "timeouts": self.timeouts,
-                "latency_ms": {"p50": pick(0.50), "p90": pick(0.90), "p99": pick(0.99)},
+                "latency_ms": self._lat.percentiles_ms(),
+                "queue_wait_ms": self._wait.percentiles_ms(),
                 "batches": self.batches,
                 "mean_batch": (self.batched_images / self.batches if self.batches else None),
                 "rss_mb": rss_mb(),

@@ -46,6 +46,7 @@ from tpupose_torch.parallel.distributed import is_primary
 from tpupose_torch.parallel.sharding import pad_batch
 from tpupose_torch.training import checkpoint as ckpt_lib
 from tpupose_torch.training.train import create_state, make_eval_step, make_train_step
+from tpupose_torch.utils.profiling import annotate
 
 
 class CSVLogger:
@@ -227,7 +228,8 @@ def train(
             batch, _ = pad_batch(batch, world)
             rng = gt_augment.batch_params(rng, cfg.augment, next(iter(batch.values())).shape[0])
             batch, rng = _rank_rows(batch, rank, world), _rank_rows(rng, rank, world)
-        tree, losses = step_fn(tree, rng, batch)
+        with annotate("train.step"):
+            tree, losses = step_fn(tree, rng, batch)
 
         step_idx += 1
         if step_idx % cfg.train.log_every == 0 or step_idx == start + 1:

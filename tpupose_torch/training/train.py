@@ -44,6 +44,7 @@ from tpupose_torch.models import OpenPose
 from tpupose_torch.ops import image as image_ops
 from tpupose_torch.training import loss as loss_lib
 from tpupose_torch.training import optimizer as opt_lib
+from tpupose_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -137,7 +138,8 @@ def _descend(model: OpenPose, tx: opt_lib.MultiSGD, tree: dict, inputs, denom,
     losses = {k: v.detach() for k, v in losses.items()}
     if all_reduce is not None:
         grads, losses = _summed(all_reduce, grads, losses)
-    tx.update(dict(zip(names, grads)), tree["opt_state"], params)
+    with annotate("train.update"):
+        tx.update(dict(zip(names, grads)), tree["opt_state"], params)
     tree["step"] += 1
     return losses
 
@@ -152,13 +154,16 @@ def make_train_step(cfg: PoseConfig, model: OpenPose, tx: opt_lib.MultiSGD,
     host synchronisation. ``loss_denom`` fixes the eucl-loss batch divisor
     to the *real* sample count when batches are padded. ``all_reduce``
     (e.g. ``torch.distributed.all_reduce``, in place, SUM) sums gradients
-    and losses over a process group before the update.
+    and losses over a process group before the update. The step's spans
+    (``utils.profiling.annotate``): ``train.upload``, ``train.targets``
+    (augment and labels) and ``train.update`` (MultiSGD).
     """
     _no_tf32()
 
     def step(state_tree, rng, batch):
-        batch = _to_device(batch, _device_of(state_tree["params"]))
-        with torch.no_grad():
+        with annotate("train.upload"):
+            batch = _to_device(batch, _device_of(state_tree["params"]))
+        with torch.no_grad(), annotate("train.targets"):
             inputs = _targets(cfg, rng, batch, training=True)
         return state_tree, _descend(model, tx, state_tree, inputs, loss_denom, all_reduce)
 
