@@ -40,7 +40,11 @@ exits non-zero):
      same heat > 0 and band masks, values within 1e-6); peaks on smooth
      random full-res maps at (8, 368, 368, 19) and (2, 496, 656, 19)
      (bit-equal to its plain version; the same peak coordinates as the
-     scipy twin on one image, values within 1e-5). Then pyramid peaks,
+     scipy twin on one image, values within 1e-5); the sorted peak tables
+     on a random crowd's masked scores of a batch of 8 (144 rows) at
+     720x1280 and at 480x640, bit-equal to sorted_tables_plain, beside
+     its time and torch.topk's (the same top K in another order of ties
+     and NaN). Then pyramid peaks,
      sample and peaks on poisoned inputs at those shapes (NaN, +inf and
      -inf in low-res maps, both signs in one channel, two scales; sample's
      direct variant at the 496x656 bucket; whole-channel NaN and an +inf
@@ -334,6 +338,18 @@ def _ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _sorted_order_calls(torch, run):
+    """(``run()``, the calls of ``decode.peaks.peak_tables`` in it that took
+    the sorted order: each launches the peak_tables kernel once). The
+    launch counts start from 0."""
+    from tpupose_torch.utils import profiling
+
+    profiling.reset_counters()
+    out = run()
+    torch.cuda.synchronize()
+    return out, profiling.counters().get("decode.tables.sorted", 0)
 
 
 def _alternate(torch, plain, kernel, reps: int) -> tuple[float, float]:
@@ -1435,12 +1451,14 @@ def _multidevice_phase(torch, np, card: str, data_dir: str) -> dict:
     got = dp.process_batch(imgs8)
     torch.cuda.synchronize()
     c4 = count(counts)
-    want_counts = {"block1": 8, "pyramid_peaks": 2, "sample": 2, "assoc": 2, "gt": 0, "peaks": 0}
-    if c4 != want_counts:
-        raise AssertionError(f"DataParallelEstimator launches {c4}, want {want_counts}")
     scored = [est._scores(imgs8[i:i + 4], None, None) for i in (0, 4)]
     k = est.cfg.inference.max_peaks
     overflow = any(bool((torch.isfinite(f).sum(-1) > k).any()) for f, _, _ in scored)
+    # the batch-wide switch: each replica's chunk in the sorted order, or neither
+    want_counts = {"block1": 8, "pyramid_peaks": 2, "sample": 2, "assoc": 2, "gt": 0, "peaks": 0,
+                   "peak_tables": 2 * overflow}
+    if c4 != want_counts:
+        raise AssertionError(f"DataParallelEstimator launches {c4}, want {want_counts}")
     for i, s in enumerate(scored):
         _same_people_strict(sum(got[4 * i:4 * i + 4], []),
                             sum(est._finish(4, est._tables(s, overflow)), []),
@@ -1672,16 +1690,20 @@ def _multidevice_phase(torch, np, card: str, data_dir: str) -> dict:
             os.kill(os.getpid(), signal.SIGINT)           # ends serve.main's wait
 
     th = threading.Thread(target=client, daemon=True)
-    ops.reset_launch_counts()
-    with contextlib.redirect_stdout(io.StringIO()), \
-            contextlib.redirect_stderr(io.StringIO()) as err:
-        th.start()
-        rc = tserve.main(["--port", str(port), "--dp", "auto", "--checkpoint",
-                          os.path.join(data_dir, "weights"), "--max-batch", "2"])
-    th.join(timeout=60)
-    torch.cuda.synchronize()
+
+    def serve_dp():
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()) as err:
+            th.start()
+            rc = tserve.main(["--port", str(port), "--dp", "auto", "--checkpoint",
+                              os.path.join(data_dir, "weights"), "--max-batch", "2"])
+        th.join(timeout=60)
+        return rc, err
+
+    (rc, err), n_sorted = _sorted_order_calls(torch, serve_dp)
     c8s = count(counts)
-    want_serve = {"block1": 4, "pyramid_peaks": 1, "sample": 1, "assoc": 1, "gt": 0, "peaks": 0}
+    want_serve = {"block1": 4, "pyramid_peaks": 1, "sample": 1, "assoc": 1, "gt": 0, "peaks": 0,
+                  "peak_tables": n_sorted}
     if c8s != want_serve:
         raise AssertionError(f"serve --dp auto, one request: launches {c8s}, want {want_serve}")
     served = PoseEstimator(DEFAULT, params=restore_params(os.path.join(data_dir, "weights")),
@@ -1933,14 +1955,16 @@ def _deploy_phase(torch, np, params, card: str, images: list, bodies: list) -> d
 
     # each batch's people bit-equal to the live estimator's at the same device batch
     padded = np.concatenate([inputs["b3"], inputs["b3"][-1:]])
-    live = {_DEPLOY_BATCHES[0]: est.process_batch(inputs["b8"]),
-            _DEPLOY_BATCHES[1]: est.process_batch(padded)[:3],
-            _DEPLOY_BATCHES[2]: est.process_batch(inputs["wide"]),
-            _DEPLOY_BATCHES[3]: est_full.process_batch(inputs["full2"])}
+    live, n_sorted = {}, {}
+    for name, run in zip(_DEPLOY_BATCHES, (lambda: est.process_batch(inputs["b8"]),
+                                           lambda: est.process_batch(padded)[:3],
+                                           lambda: est.process_batch(inputs["wide"]),
+                                           lambda: est_full.process_batch(inputs["full2"]))):
+        live[name], n_sorted[name] = _sorted_order_calls(torch, run)
     want_launches = {"block1": 4, "pyramid_peaks": 1, "sample": 1, "assoc": 1, "gt": 0,
                      "peaks": 0}
     want_full = {**want_launches, "pyramid_peaks": 0, "sample": 0, "peaks": 1}
-    counts = dict.fromkeys(want_launches, 0)
+    counts = dict.fromkeys((*want_launches, "peak_tables"), 0)
     for name in _DEPLOY_BATCHES:
         got = child["batches"][name]
         want = json.loads(json.dumps(live[name]))
@@ -1948,7 +1972,9 @@ def _deploy_phase(torch, np, params, card: str, images: list, bodies: list) -> d
             raise AssertionError(f"bundle, {name}: people differ from the live estimator's "
                                  f"({sum(map(len, got['people']))} against "
                                  f"{sum(map(len, want))})")
-        expected = want_full if name.startswith("full-res") else want_launches
+        # the loaded program takes the live estimator's order of the peak tables
+        expected = {**(want_full if name.startswith("full-res") else want_launches),
+                    "peak_tables": n_sorted[name]}
         if got["launches"] != expected:
             raise AssertionError(f"bundle, {name}: launches {got['launches']}, want {expected}")
         counts = {k: counts[k] + got["launches"][k] for k in counts}
@@ -2114,14 +2140,14 @@ def _adaptation_phase(torch, np, params, card: str) -> dict:
             counts[key] += v
 
         # the walkthrough on the card against the CPU
-        ops.reset_launch_counts()
         t0 = time.perf_counter()
-        got = walk.walkthrough(os.path.join(work, "walk_cuda"), "cuda")
-        torch.cuda.synchronize()
+        got, walk_sorted = _sorted_order_calls(
+            torch, lambda: walk.walkthrough(os.path.join(work, "walk_cuda"), "cuda"))
         walk_s = time.perf_counter() - t0
         counts_walk = ops.launch_counts()
         want = walk.walkthrough(os.path.join(work, "walk_cpu"), "cpu")
-        if counts_walk != {**{k: 0 for k in counts_walk}, "gt": 1, "peaks": 1, "assoc": 1}:
+        if counts_walk != {**{k: 0 for k in counts_walk}, "gt": 1, "peaks": 1, "assoc": 1,
+                           "peak_tables": walk_sorted}:
             raise AssertionError(f"launches over the walkthrough: {counts_walk}")
         for key in ("xs", "ys", "valid"):
             if not np.array_equal(got["peaks"][key], want["peaks"][key]):
@@ -2540,10 +2566,11 @@ def main(parent: str | None = None) -> int:
     from tpupose_torch.ops import block1 as block1_mod
     from tpupose_torch.ops import gt as gt_mod
     from tpupose_torch.ops import image
+    from tpupose_torch.ops import peak_tables as pt_mod
     from tpupose_torch.ops import peaks as pk_mod
     from tpupose_torch.ops import pyramid_peaks as pp_mod
     from tpupose_torch.ops import sample as sample_mod
-    from tpupose_torch.testing import crowded_scene, planted_scene
+    from tpupose_torch.testing import crowded_flats, crowded_scene, planted_scene
     from tpupose_torch.training import checkpoint as ckpt_lib
     from tpupose_torch.training import create_state, make_train_step
     from tpupose_torch.training import loss as loss_lib
@@ -2876,6 +2903,34 @@ def main(parent: str | None = None) -> int:
     _nonfinite_kernels(torch, np, card, pp_mod, sample_mod, pk_mod, heat_space, paf_space, iy,
                        ix, chans, pk_field, icfg, record)
     del pk_field, pk_out, field, got, want
+
+    # the sorted peak tables at the main path's shapes: the masked scores of a
+    # batch of 8 (144 rows) at 720x1280 and at 480x640, a random crowd's
+    k = icfg.max_peaks
+    for (th, tw), name in (((720, 1280), "720x1280"), ((480, 640), "480x640")):
+        flat = crowded_flats(144, th * tw, seed=th, device=dev)
+        got = pt_mod.peak_tables(flat, tw, k)
+        want = peaks_mod.sorted_tables_plain(flat, tw, k)
+        if not (all(torch.equal(got[key], want[key]) for key in ("xs", "ys", "valid"))
+                and torch.equal(got["scores"].view(torch.int32), want["scores"].view(torch.int32))):
+            raise AssertionError(f"peak tables at {name}: not bit-equal to the plain version")
+        k_ms, p_ms = _alternate(torch, lambda: peaks_mod.sorted_tables_plain(flat, tw, k),
+                                lambda: pt_mod.peak_tables(flat, tw, k), 5)
+        # torch.topk computes the same top K, in another order of ties and NaN
+        lib_ms = _ms(torch, lambda: torch.topk(flat, k, dim=-1), 5)
+        entry = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+                 **_bound(_nbytes(flat, *got.values()), 0, F32_FLOPS), "library_ms": lib_ms}
+        if "peak_tables" in record:
+            record["peak_tables"][name] = entry
+        else:
+            record["peak_tables"] = {**entry, "shape": name}
+        in_row = torch.isfinite(flat).sum(-1)
+        _say("b", f"peak tables, 144 rows of {name} masked scores ({int(in_row.min())} to "
+                  f"{int(in_row.max())} peaks a row, {int((in_row > k).sum())} rows over {k}): "
+                  f"bit-equal to the plain version: pass; kernel {k_ms:.4f} ms, plain (the "
+                  f"f64 sort) {p_ms:.3f} ms, torch.topk {lib_ms:.3f} ms, bound "
+                  f"{entry['bound_ms']:.4f} ms ({card})")
+        del flat, got, want, in_row
     for name, r in record.items():
         _say("b", f"{name}: bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
                   f"({r['bound_ms'] / r['ms']:.3f} of the kernel's {r['ms']:.4f} ms); "
@@ -2936,11 +2991,10 @@ def main(parent: str | None = None) -> int:
     full_cfg = dataclasses.replace(DEFAULT, inference=dataclasses.replace(
         DEFAULT.inference, paf_readout="fullres"))
     est_full = PoseEstimator(full_cfg, seed=0, device="cuda")
-    ops.reset_launch_counts()
-    people8f = est_full.process_batch(imgs8)
-    torch.cuda.synchronize()
+    people8f, n_sorted = _sorted_order_calls(torch, lambda: est_full.process_batch(imgs8))
     counts_full = ops.launch_counts()
-    want_full = {"block1": 4, "pyramid_peaks": 0, "sample": 0, "assoc": 1, "gt": 0, "peaks": 1}
+    want_full = {"block1": 4, "pyramid_peaks": 0, "sample": 0, "assoc": 1, "gt": 0, "peaks": 1,
+                 "peak_tables": n_sorted}
     if counts_full != want_full:
         raise AssertionError(f"launches over one full-res batch: {counts_full}, not {want_full}")
     if len(people8f) != 8:

@@ -157,7 +157,8 @@ def test_main_prints_one_line_with_every_key(tiny_run):
     # the kernels' plain versions ran: a CPU run launches no kernel
     assert "bench: kernel launches " in err
     launches = json.loads(err.split("bench: kernel launches ")[1].splitlines()[0])
-    assert set(launches) == {"block1", "pyramid_peaks", "sample", "assoc", "gt", "peaks"}
+    assert set(launches) == {"block1", "pyramid_peaks", "sample", "assoc", "gt", "peaks",
+                             "peak_tables"}
     assert not any(launches.values())
 
 

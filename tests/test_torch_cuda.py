@@ -9,7 +9,7 @@ Tolerances: block1 within the bf16 bound of tests/test_pallas_block1.py
 (against an f32 truth); pyramid peaks the same peak mask and values
 within 1e-5; sample within 1e-5; both on non-finite maps with NaN, +inf
 and -inf at the plain version's places and the bits of every non-finite
-output equal; assoc bit-equal; peaks bit-equal; the
+output equal; assoc bit-equal; peaks bit-equal; peak_tables bit-equal; the
 decode's integer tables equal and floats within 1e-4 (scale-space and
 full-res); gt the same masks and values within 1e-6; a small train step
 within 1e-4 (losses) of the CPU.
@@ -601,6 +601,78 @@ def test_fullres_decode_on_cuda_as_on_cpu(cuda):
     assert len(to_people({k: v.numpy() for k, v in cpu.items()})) == 2
 
 
+# the sorted peak tables: (rows, n, w, k, chunks, flats); chunks None is the
+# wrapper's own count, a number forces the first stage's split
+_TABLE_CASES = {
+    "hd": (144, 720 * 1280, 1280, 96, [None], "crowded"),
+    "vga": (144, 480 * 640, 640, 96, [None], "crowded"),
+    "tiny_k8": (36, 64, 8, 8, [None, 3], "crowded"),
+    "tiny_k16": (36, 64, 8, 16, [None, 3], "crowded"),
+    "n_below_k": (36, 50, 10, 96, [None, 4], "crowded"),
+    "ragged": (5, 100_003, 331, 256, [None, 7, 64], "crowded"),
+    "adversarial_k1": (10, 5003, 41, 1, [None, 3], "adversarial"),
+    "adversarial_k96": (10, 5003, 41, 96, [None, 3, 40], "adversarial"),
+    "adversarial_k256": (10, 5003, 41, 256, [None, 7, 40], "adversarial"),
+}
+
+
+def _flats(rows, n, kind, cuda):
+    from tpupose_torch.testing import adversarial_flats, crowded_flats
+
+    if kind == "adversarial":
+        return adversarial_flats(n).to(cuda)
+    flat = crowded_flats(rows, n, seed=rows + n, device=cuda)
+    if n >= 300_000:          # the crowd's scale: rows beyond the capacity
+        assert int((torch.isfinite(flat).sum(-1) > 96).sum()) >= rows // 4
+    return flat
+
+
+@pytest.mark.parametrize("case", list(_TABLE_CASES))
+def test_peak_tables_kernel_bit_equal(cuda, case):
+    """csrc/peak_tables.cu against sorted_tables_plain (its torch.sort on
+    the card), bit for bit in all four outputs, the first stage split as
+    the wrapper splits it and as forced: every xs, ys and valid equal and
+    every score's bits (a -0.0 stays -0.0, NaN and inf give 0). Each call
+    launches the kernel once; the guarded peak_tables of an overflowing
+    batch goes through it once too."""
+    from tpupose_torch.decode import peaks as peaks_mod
+    from tpupose_torch.ops import peak_tables as pt_mod
+
+    rows, n, w, k, splits, kind = _TABLE_CASES[case]
+    flat = _flats(rows, n, kind, cuda)
+    want = peaks_mod.sorted_tables_plain(flat, w, k)
+    for chunks in splits:
+        before = pt_mod.KERNEL.launches
+        got = dict(zip(peaks_mod.TABLE_KEYS, pt_mod.launch(flat, w, k, chunks)))
+        torch.cuda.synchronize()
+        assert pt_mod.KERNEL.launches == before + 1
+        for key in ("xs", "ys", "valid"):
+            assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), \
+                (key, chunks)
+        assert got["scores"].dtype == torch.float32
+        assert torch.equal(got["scores"].view(torch.int32), want["scores"].view(torch.int32)), \
+            chunks
+    if bool(peaks_mod.overflowed(flat, k)):
+        before = pt_mod.KERNEL.launches
+        got = peaks_mod.peak_tables(flat, w, k)
+        assert pt_mod.KERNEL.launches == before + 1
+        assert all(torch.equal(got[key], want[key]) for key in ("xs", "ys", "valid"))
+
+
+def test_peak_tables_kernel_refuses_what_it_cannot_hold(cuda):
+    """Over MAX_K slots or another dtype than float32 the kernel raises, and
+    nothing launches."""
+    from tpupose_torch.ops import peak_tables as pt_mod
+
+    flat = torch.zeros((2, 1000), device=cuda)
+    before = pt_mod.KERNEL.launches
+    with pytest.raises(ValueError, match="at most 256"):
+        pt_mod.peak_tables(flat, 10, pt_mod.MAX_K + 1)
+    with pytest.raises(ValueError, match="float32"):
+        pt_mod.peak_tables(flat.double(), 10, 96)
+    assert pt_mod.KERNEL.launches == before
+
+
 @pytest.mark.parametrize("shape", [(10, 24, 46, 8, 12), (3, 5, 16, 4, 2), (10, 24, 46, 8, 24),
                                    (2, 3, 200, 8, 3)])
 def test_gt_kernel(cuda, shape):
@@ -1001,13 +1073,14 @@ def test_bench_device_rate_and_latency_launch_the_inference_kernels(cuda):
     """``benchmark._measure_on_device`` and ``_measure_latency`` on a
     full-width estimator (VGG19 + 6 stages, 4 scales): positive rates and
     times, and block1, pyramid_peaks, sample and assoc launched, gt and
-    peaks not."""
+    peaks not, peak_tables once for each call that took the sorted order."""
     from tpupose_torch import benchmark, ops
     from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.utils import profiling
 
     image, _, _ = benchmark.synthetic_scene(368)
     est = PoseEstimator(seed=0, device=cuda)
-    ops.reset_launch_counts()
+    profiling.reset_counters()
     ips = benchmark._measure_on_device(est, np.stack([image] * 8), None, iters=2)
     lat = benchmark._measure_latency(est, image, (1.0,), iters=3)
     torch.cuda.synchronize()
@@ -1015,8 +1088,9 @@ def test_bench_device_rate_and_latency_launch_the_inference_kernels(cuda):
     assert ips > 0 and set(lat) == {"wall_p50_ms", "wall_p99_ms", "device_mean_ms"}
     assert 0 < lat["wall_p50_ms"] <= lat["wall_p99_ms"] and lat["device_mean_ms"] > 0
     # 3 program calls at 4 scales, then 1 + 3 + 1 + 3 at scale 1.0
+    sorted_calls = profiling.counters().get("decode.tables.sorted", 0)
     assert counts == {"block1": 3 * 4 + 8, "pyramid_peaks": 11, "sample": 11, "assoc": 11,
-                      "gt": 0, "peaks": 0}, counts
+                      "gt": 0, "peaks": 0, "peak_tables": sorted_calls}, counts
 
 
 # --- the program's spans ----------------------------------------------------------------------

@@ -10,7 +10,7 @@ without the model's code, fails loudly on corruption, and drops into
 live estimator on the same weights, within ``test_torch_infer``'s
 tolerances (the two frameworks' f32 convolutions sum in different orders);
 its ``weights.npz`` equal, key for key, to the JAX bundle's; both branches
-of the decode's peak-overflow switch, a ``cond`` in the graph; the five
+of the decode's peak-overflow switch, a ``cond`` in the graph; the six
 registered operators under ``torch.library.opcheck``; the graphs calling
 them; and programs small beside the weights. Small: one stage, f32 (bf16
 where block1 must be in the graph), scale 0.5, a 96x96 bucket.
@@ -415,7 +415,8 @@ def test_overflow_switch_is_a_cond_on_both_branches(params, est, bundle, dep, tm
     imgs = _batch(seed=4, n=n)
     flats = live._scores(imgs, None, None)[0]
     assert bool(overflowed(flats.reshape(-1, flats.shape[-1]), max_peaks)) is overflows
-    assert "cond" in _graph_targets(_program(path, f"96x96_b{n}"))
+    targets = _graph_targets(_program(path, f"96x96_b{n}"))
+    assert "cond" in targets and "tpupose_torch.peak_tables.default" in targets
     got = packed.process_batch(imgs)
     assert _same(got, live.process_batch(imgs)) > 0
 
@@ -427,21 +428,23 @@ def _called_operators(path, key="96x96_b1") -> set[str]:
 
 def test_scalespace_program_calls_the_operators(cli_bundle):
     """A bf16 estimator's scale-space program (block 1 fused) calls the
-    four kernels of its path as operators."""
+    five kernels of its path as operators (peak_tables in the overflow
+    switch's sorted branch)."""
     assert _called_operators(cli_bundle) == {"block1", "pyramid_peak_scores", "sample_avg",
-                                             "assoc"}
+                                             "assoc", "peak_tables"}
 
 
 def test_fullres_program_calls_peak_scores(params, tmp_path):
     """A ``fullres`` estimator exports a program that holds peak_scores in
-    place of pyramid_peak_scores and sample_avg, and equals it."""
+    place of pyramid_peak_scores and sample_avg (and peak_tables in the
+    overflow switch's sorted branch), and equals it."""
     cfg = PoseConfig(model=ModelConfig(num_stages=1),
                      inference=dataclasses.replace(CFG.inference, paf_readout="fullres"))
     live = PoseEstimator(cfg, params=params, device="cpu")
     path = str(tmp_path / "b.tppx")
     manifest = save_bundle(path, live, [BUCKET], max_batch=1)
     assert manifest["paf_readout"] == "fullres" and manifest["compute_dtype"] == "bfloat16"
-    assert _called_operators(path) == {"block1", "peak_scores", "assoc"}
+    assert _called_operators(path) == {"block1", "peak_scores", "assoc", "peak_tables"}
     imgs = _batch(seed=6, n=1)
     assert _same(load_bundle(path, device="cpu").process_batch(imgs),
                  live.process_batch(imgs)) > 0
@@ -452,7 +455,9 @@ def _op_cases():
     on them as a tuple)."""
     from tpupose_torch import topology
     from tpupose_torch.decode.scalespace import ScaleSpace
-    from tpupose_torch.ops import assoc, block1, peaks, pyramid_peaks, sample
+    from tpupose_torch.decode.peaks import TABLE_KEYS, sorted_tables_plain
+    from tpupose_torch.ops import assoc, block1, peak_tables, peaks, pyramid_peaks, sample
+    from tpupose_torch.testing import adversarial_flats
 
     g = torch.Generator().manual_seed(0)
 
@@ -490,11 +495,13 @@ def _op_cases():
                   lambda a: tuple(assoc.assoc_plain(*a)[key] for key in assoc._KEYS)),
         "peak_scores": (peaks._peaks_op, (rnd(2, 20, 24, 19).abs(), 18, 3.0, 0.1),
                         lambda a: (peaks.peak_scores_plain(*a),)),
+        "peak_tables": (peak_tables._tables_op, (adversarial_flats(40), 7, 16),
+                        lambda a: tuple(sorted_tables_plain(*a)[key] for key in TABLE_KEYS)),
     }
 
 
 @pytest.mark.parametrize("name", ["block1", "pyramid_peak_scores", "sample_avg", "assoc",
-                                  "peak_scores"])
+                                  "peak_scores", "peak_tables"])
 def test_operator_opcheck_and_cpu_kernel_is_the_plain_version(name):
     """``torch.library.opcheck`` of each registered operator on the CPU
     (schema, fake tensor, autograd registration, AOT dispatch), and the
@@ -507,6 +514,36 @@ def test_operator_opcheck_and_cpu_kernel_is_the_plain_version(name):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert str(op._opoverload) == f"tpupose_torch.{name}.default"
+
+
+@pytest.mark.parametrize("overflows", [True, False])
+def test_export_traces_both_table_orders_through_the_operator(overflows):
+    """``torch.export`` of a bare ``decode.peaks.peak_tables`` call: the
+    overflow switch a cond whose sorted branch is the one node of
+    ``tpupose_torch::peak_tables`` (traced through its fake); the program
+    equals the eager call bit for bit on a batch that overflows and on one
+    that does not."""
+    from tpupose_torch.decode import peaks as peaks_mod
+    from tpupose_torch.testing import adversarial_flats
+
+    class Tables(torch.nn.Module):
+        def forward(self, flat):
+            return tuple(peaks_mod.peak_tables(flat, 41, 16).values())
+
+    flat = adversarial_flats(205)
+    ep = torch.export.export(Tables(), (flat,), strict=False)
+    nodes = [str(n.target) for gm in ep.graph_module.modules()
+             if isinstance(gm, torch.fx.GraphModule) for n in gm.graph.nodes]
+    assert "cond" in nodes and nodes.count("tpupose_torch.peak_tables.default") == 1
+    if not overflows:
+        flat[[0, 1, 7, 8, 9]] = -torch.inf
+    assert bool(peaks_mod.overflowed(flat, 16)) is overflows
+    got, want = ep.module()(flat), peaks_mod.peak_tables(flat, 41, 16)
+    for g, key in zip(got, peaks_mod.TABLE_KEYS):
+        w = want[key]
+        if key == "scores":          # the bits: a -0.0 stays -0.0
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert g.dtype == w.dtype and torch.equal(g, w), key
 
 
 def test_programs_are_small_beside_the_weights(bundle):

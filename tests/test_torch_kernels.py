@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's four kernels against the JAX
+"""The plain PyTorch versions of the port's five kernels against the JAX
 functions they stand for, on the CPU, at tiny shapes (same numpy inputs).
 
   block1         ops/block1.py        vs block1_reference / fused_block1
@@ -6,10 +6,14 @@ functions they stand for, on the CPU, at tiny shapes (same numpy inputs).
   sample         ops/sample.py        vs scalespace.sample_avg (1e-5)
   assoc          ops/assoc.py         vs paf._greedy_accept + assemble
                                          (bit-equal) / assoc_pallas
+  peak tables    ops/peak_tables.py   vs lax.top_k (peak_tables_tiered);
+                                         its kernel's selection in numpy
 
 The CUDA kernels themselves are held against these plain versions on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -837,3 +841,178 @@ def test_pyramid_peaks_plain_matches_pallas_interpret():
     assert mask.sum() > 10
     np.testing.assert_array_equal(np.isfinite(got), mask)
     np.testing.assert_allclose(got[mask], want[mask], rtol=0, atol=1e-5)
+
+
+# --- the sorted peak tables: the plain version against lax.top_k, the kernel's ---
+# --- selection in numpy against the plain version --------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _top_k_pair(n: int = 300, w: int = 25, k: int = 96):
+    """The adversarial rows with every NaN's sign bit set (the NaN that
+    ``0 * inf`` makes, the only one that reaches a peak), through the
+    reference's guarded tables (a row overflows, so ``lax.top_k``) and the
+    port's, as numpy."""
+    from tpupose.decode.peaks import peak_tables_tiered
+    from tpupose_torch.decode import peaks as tpeaks
+    from tpupose_torch.testing import adversarial_flats
+
+    flat = adversarial_flats(n).numpy()
+    bits = flat.view(np.uint32)
+    bits[np.isnan(flat)] |= np.uint32(0x80000000)
+    assert (np.isfinite(flat).sum(-1) > k).any()
+    want = jax.device_get(peak_tables_tiered(jnp.asarray(flat), w, k))
+    got = tpeaks.peak_tables(torch.from_numpy(flat), w, k)
+    plain = tpeaks.sorted_tables_plain(torch.from_numpy(flat), w, k)
+    return flat, {key: np.asarray(v) for key, v in want.items()}, \
+        {key: v.numpy() for key, v in got.items()}, {key: v.numpy() for key, v in plain.items()}
+
+
+@pytest.mark.parametrize("row", range(10))
+def test_sorted_tables_plain_matches_lax_top_k(row):
+    """Each adversarial row (ties, +-0.0, +-inf, NaN, filler coordinates,
+    all NaN, all -inf, ascending) through the port's sorted tables equals
+    the reference's ``lax.top_k`` tables, slot for slot, with one
+    exception: ``lax.top_k`` ranks +0.0 above -0.0 (the bits' total
+    order), the port ranks them equal, lowest index first. Among zeros
+    the two hold the same pixels; the port's scores keep each input's
+    bits."""
+    flat, want, got, plain = _top_k_pair()
+    for key in want:
+        np.testing.assert_array_equal(got[key][row], plain[key][row], err_msg=key)
+    w = 25
+    idx = got["ys"][row].astype(np.int64) * w + got["xs"][row]
+    zero = want["valid"][row] & (want["scores"][row] == 0)
+    assert np.array_equal(zero, got["valid"][row] & (got["scores"][row] == 0))
+    for key in want:
+        np.testing.assert_array_equal(got[key][row][~zero], want[key][row][~zero], err_msg=key)
+    want_idx = want["ys"][row].astype(np.int64) * w + want["xs"][row]
+    assert sorted(idx[zero]) == sorted(want_idx[zero]) == list(idx[zero])
+    np.testing.assert_array_equal(got["scores"][row].view(np.uint32),
+                                  np.where(got["valid"][row], flat[row, idx], 0).view(np.uint32))
+
+
+_K_SORT, _K_TILE = 4096, 2048     # csrc/peak_tables.cu kSort, kTile
+
+
+def _image(v: np.ndarray) -> np.ndarray:
+    """csrc/peak_tables.cu score_image."""
+    b = np.ascontiguousarray(v, np.float32).view(np.uint32).copy()
+    nan = (b & 0x7fffffff) > 0x7f800000
+    b[b == 0x80000000] = 0
+    img = np.where(b & 0x80000000, ~b, b | 0x80000000)
+    img[nan] = 0
+    return img.astype(np.uint64)
+
+
+def _select_best(load, n: int, k: int, stage1: bool) -> np.ndarray:
+    """csrc/peak_tables.cu select_best: the first k keys sorted, then tiles
+    filtered against the threshold (the first stage by the images alone),
+    a merge when the buffer could not take another tile, and at the end."""
+    top = np.zeros(k, np.uint64)
+    first = load(0, min(k, n))
+    top[:len(first)] = first
+    top = np.sort(top)[::-1]
+    buf: list = []
+    for base in range(k, n, _K_TILE):
+        keys = load(base, min(base + _K_TILE, n))
+        thr = top[k - 1]
+        beats = (keys >> np.uint64(32)) > (thr >> np.uint64(32)) if stage1 else keys > thr
+        buf.extend(keys[beats].tolist())
+        assert k + len(buf) <= _K_SORT
+        if len(buf) > _K_SORT - k - _K_TILE:
+            top = np.sort(np.concatenate([top, np.asarray(buf, np.uint64)]))[::-1][:k]
+            buf = []
+    if buf:
+        top = np.sort(np.concatenate([top, np.asarray(buf, np.uint64)]))[::-1][:k]
+    return top
+
+
+def _kernel_in_numpy(flat: np.ndarray, w: int, k: int, chunks: int) -> dict:
+    """csrc/peak_tables.cu's two stages in numpy."""
+    rows, n = flat.shape
+    chunk_len, k_out = -(-n // chunks), min(n, k)
+    out = {"xs": np.zeros((rows, k_out), np.int32), "ys": np.zeros((rows, k_out), np.int32),
+           "scores": np.zeros((rows, k_out), np.float32), "valid": np.zeros((rows, k_out), bool)}
+    for r in range(rows):
+        lists = []
+        for c in range(chunks):
+            lo = c * chunk_len
+
+            def load(a, b, lo=lo):
+                return (_image(flat[r, lo + a:lo + b]) << np.uint64(32)) | (
+                    np.uint64(0xffffffff) - np.arange(lo + a, lo + b, dtype=np.uint64))
+
+            lists.append(_select_best(load, max(0, min(chunk_len, n - lo)), k, True))
+        lists = np.concatenate(lists)
+        top = _select_best(lambda a, b: lists[a:b], len(lists), k, False)[:k_out]
+        idx = (np.uint64(0xffffffff) - (top & np.uint64(0xffffffff))).astype(np.int64)
+        v = flat[r, idx]
+        ok = np.isfinite(v)
+        out["xs"][r], out["ys"][r] = idx % w, idx // w
+        out["scores"][r], out["valid"][r] = np.where(ok, v, np.float32(0)), ok
+    return out
+
+
+@pytest.mark.parametrize("case", [("adversarial", 2003, 1, 3), ("adversarial", 2003, 96, 1),
+                                  ("adversarial", 5003, 96, 40), ("adversarial", 5003, 256, 7),
+                                  ("crowded", 64, 8, 3), ("crowded", 50, 96, 4),
+                                  ("crowded", 20_003, 16, 5)])
+def test_peak_tables_kernel_selection_in_numpy(case):
+    """csrc/peak_tables.cu's keys and two-stage selection, written out in
+    numpy, give sorted_tables_plain's four outputs bit for bit: ties of
+    every kind, NaN of both signs, filler, ascending rows (a merge every
+    tile), N < K, and a second stage over more keys than one sort holds."""
+    from tpupose_torch.decode.peaks import sorted_tables_plain
+    from tpupose_torch.testing import adversarial_flats, crowded_flats
+
+    kind, n, k, chunks = case
+    flat = adversarial_flats(n) if kind == "adversarial" else crowded_flats(12, n, seed=n)
+    want = sorted_tables_plain(flat, 41, k)
+    got = _kernel_in_numpy(flat.numpy(), 41, k, chunks)
+    for key, v in want.items():
+        v = v.numpy()
+        assert got[key].shape == v.shape, key
+        np.testing.assert_array_equal(got[key].view(np.uint32) if key == "scores" else got[key],
+                                      v.view(np.uint32) if key == "scores" else v, err_msg=key)
+
+
+def test_cpu_scores_take_the_plain_tables_and_launch_nothing(monkeypatch):
+    """A CPU tensor goes through the operator's CPU kernel, the plain
+    version: the same tables bit for bit, no kernel built or launched."""
+    from tpupose_torch import ops
+    from tpupose_torch.decode import peaks as tpeaks
+    from tpupose_torch.ops import peak_tables as pt
+    from tpupose_torch.testing import crowded_flats
+
+    def refuse():
+        raise AssertionError("a CPU tensor built the kernel")
+
+    monkeypatch.setattr(pt.KERNEL, "build", refuse)
+    flat = crowded_flats(18, 30_000, seed=2)
+    flat[3, 7] = -0.0
+    before = ops.launch_counts()
+    got = tpeaks.sorted_tables(flat, 200, 96)
+    guarded = tpeaks.peak_tables(flat, 200, 96)
+    want = tpeaks.sorted_tables_plain(flat, 200, 96)
+    assert ops.launch_counts() == before
+    assert bool(tpeaks.overflowed(flat, 96))
+    for key in want:
+        g, gg, w = got[key], guarded[key], want[key]
+        if key == "scores":
+            g, gg, w = (t.view(torch.int32) for t in (g, gg, w))
+        assert torch.equal(g, w) and torch.equal(gg, w), key
+
+
+def test_chunk_count_fills_the_card_and_keeps_chunks_long():
+    """The first stage's split: about 8 blocks an SM where the rows are
+    long (an HD and a VGA batch of 8: 8 chunks; one HD image: 59), never a
+    chunk under MIN_CHUNK scores, one chunk for short rows."""
+    from tpupose_torch.ops import peak_tables as pt
+
+    assert pt.chunk_count(144, 921_600, 132) == 8 and pt.chunk_count(144, 307_200, 132) == 8
+    assert pt.chunk_count(18, 921_600, 132) == 59
+    assert pt.chunk_count(36, 64, 132) == pt.chunk_count(5000, 921_600, 132) == 1
+    for rows, n in ((144, 921_600), (18, 921_600), (8, 20_000), (1, 10 ** 7)):
+        c = pt.chunk_count(rows, n, 132)
+        assert n // c >= pt.MIN_CHUNK and (rows * c >= 2 * 132 or c == n // pt.MIN_CHUNK)

@@ -107,18 +107,18 @@ def peak_tables(flat: torch.Tensor, w: int, max_peaks: int,
         if torch.compiler.is_exporting():
             out = torch.cond(overflow, lambda f: _tuple(sorted_tables(f, w, k)),
                              lambda f: _tuple(scan_tables(f, w, k)), (flat,))
-            return dict(zip(_TABLE_KEYS, out))
+            return dict(zip(TABLE_KEYS, out))
         with annotate("decode.overflow_switch"):
             overflow = bool(overflow)
     count("decode.tables.sorted" if overflow else "decode.tables.scan")
     return sorted_tables(flat, w, k) if overflow else scan_tables(flat, w, k)
 
 
-_TABLE_KEYS = ("xs", "ys", "scores", "valid")
+TABLE_KEYS = ("xs", "ys", "scores", "valid")
 
 
 def _tuple(tables: dict[str, torch.Tensor]) -> tuple[torch.Tensor, ...]:
-    return tuple(tables[key] for key in _TABLE_KEYS)
+    return tuple(tables[key] for key in TABLE_KEYS)
 
 
 def sorted_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.Tensor]:
@@ -128,8 +128,19 @@ def sorted_tables(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch
     bits and puts the NaN that ``0 * inf`` makes there (sign bit set) last.
     A NaN at a peak only arises so (a peak needs a blurred value that is
     not NaN, so its map holds no NaN, only an inf), and it ranks last here
-    whatever its bits, on every device. The sort key is f64, where -inf of
-    the scores becomes the least finite f64 and NaN -inf."""
+    whatever its bits, on every device. The operator of ``ops/peak_tables``:
+    ``sorted_tables_plain`` for a CPU tensor, its CUDA kernel for a CUDA
+    one."""
+    # imported here: the kernel's module imports this one for its plain version
+    from tpupose_torch.ops import peak_tables as _tables_op
+
+    return _tables_op.peak_tables(flat, w, max_peaks)
+
+
+def sorted_tables_plain(flat: torch.Tensor, w: int, max_peaks: int) -> dict[str, torch.Tensor]:
+    """``sorted_tables`` in plain PyTorch ops. The sort key is f64, where
+    -inf of the scores becomes the least finite f64 and NaN -inf; a stable
+    sort keeps equal keys (+0.0 and -0.0 among them) in index order."""
     key = flat.to(torch.float64)
     key = torch.where(torch.isneginf(key), torch.finfo(torch.float64).min, key)
     key = torch.where(torch.isnan(key), -torch.inf, key)

@@ -6,6 +6,8 @@ two-person scene from the port's ground-truth rasteriser
 bilinear resize: decoding them must give the two people.
 ``crowded_scene`` does the same for a crowd of 30 or more people in a
 720x1280 frame: the tables the association meets on a crowded frame.
+``crowded_flats`` and ``adversarial_flats`` are masked peak scores, the
+input of the sorted peak tables (``ops/peak_tables.py``).
 ``png_bytes`` encodes an image as a request body with ``zlib`` alone.
 ``coco_keypoint_set`` writes a COCO-format keypoint set (annotations and
 PNG images) from a seed: the input of ``prepare`` and ``eval``.
@@ -150,6 +152,43 @@ def crowded_scene(sizes, n_people: int = 32, seed: int = 0, frame: tuple = (720,
         heats.append(low[None, :, :, 38:].contiguous())
         pafs.append(low[None, :, :, :38].contiguous())
     return heats, pafs, joints
+
+
+def crowded_flats(rows: int, n: int, seed: int = 0, device="cpu") -> torch.Tensor:
+    """(rows, n) masked scores as a random crowd leaves them: -inf off-peak
+    and, in each row, peaks at random places with a density of up to 1 in
+    250 (a few rows hold fewer than a hundred), scores in [0.1, 1] on a
+    grid of 1/4096, so that many are exactly equal. Made on ``device``
+    from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    density = 4e-3 * torch.rand((rows, 1), generator=g, device=device) ** 2
+    peak = torch.rand((rows, n), generator=g, device=device) < density
+    scores = torch.round((0.1 + 0.9 * torch.rand((rows, n), generator=g, device=device)) * 4096)
+    return torch.where(peak, scores / 4096, -torch.inf)
+
+
+def adversarial_flats(n: int, seed: int = 0) -> torch.Tensor:
+    """(10, n) masked scores, n >= 16, a row for each hard case of the
+    sorted order: exact ties, ties of +0.0 and -0.0, +inf and NaN of
+    both signs among a few peaks, all NaN, all -inf, fewer peaks than
+    the tables hold (filler), -inf and NaN filler together, ascending
+    scores (every score beats those before it), negative NaN in every
+    third place, and a row of random peaks."""
+    rng = np.random.default_rng(seed)
+    nan = np.float32(np.nan)
+    flat = np.full((10, n), -np.inf, np.float32)
+    flat[0, rng.random(n) < 0.2] = 0.5
+    flat[1, rng.random(n) < 0.2] = 0.0
+    flat[1, rng.random(n) < 0.1] = -0.0
+    flat[2, :8] = [np.inf, 1.0, nan, -nan, np.inf, 2.0, -np.inf, -0.0]
+    flat[3] = nan
+    flat[5, rng.choice(n, 5, replace=False)] = rng.random(5)
+    flat[6, rng.choice(n, 8, replace=False)] = [0.5, -nan, nan, 0.25, -nan, 1.0, 0.75, nan]
+    flat[7] = np.arange(n, dtype=np.float32) - n / 2
+    flat[8, ::3] = -nan
+    live = rng.random(n) < 0.3
+    flat[9, live] = rng.random(int(live.sum()))
+    return torch.from_numpy(flat)
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
