@@ -44,7 +44,11 @@ exits non-zero):
      on a random crowd's masked scores of a batch of 8 (144 rows) at
      720x1280 and at 480x640, bit-equal to sorted_tables_plain, beside
      its time and torch.topk's (the same top K in another order of ties
-     and NaN). Then pyramid peaks,
+     and NaN); BODY_25's dense-block epilogue at the 720p cell's widest
+     map (8 x 92 x 164 pixels; 128 channels into a third of a 384-channel
+     buffer, 512 at full width) and assoc at 25 parts (batch 8, K = 96,
+     26 limbs), bit-equal to their plain versions, beside their bounds,
+     the epilogue beside the bias add, prelu and copy it fuses. Then pyramid peaks,
      sample and peaks on poisoned inputs at those shapes (NaN, +inf and
      -inf in low-res maps, both signs in one channel, two scales; sample's
      direct variant at the 496x656 bucket; whole-channel NaN and an +inf
@@ -370,6 +374,108 @@ def _bound(n_bytes: float, ops: float, rate: float) -> dict:
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _body25_kernels(torch, np, card: str, record: dict) -> None:
+    """Phase b's BODY_25 rows: the dense-block epilogue at the widest map of
+    the 720p 4-scale cell (batch 8, 92 x 164 pixels, a 128-channel third of
+    a 384-channel block buffer, and Mconv6's 512 channels at full width)
+    and assoc at 25 parts (batch 8, K = 96, 26 limbs), each held bit-equal
+    to its plain version and timed beside it and its bound. The
+    epilogue's yardstick is the three passes it fuses: a bf16 bias add,
+    ``torch.prelu`` and the copy into the buffer."""
+    import torch.nn.functional as F
+
+    from tpupose_torch.decode import paf as paf_mod
+    from tpupose_torch.ops import assoc as assoc_mod
+    from tpupose_torch.ops import dense_epilogue as epi
+    from tpupose_torch.skeletons import BODY25
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(25)
+    rows = {}
+    for w, width, off in ((128, 384, 128), (512, 512, 0)):
+        y = torch.randn((8, 92, 164, w), generator=g, device=dev).to(torch.bfloat16)
+        bias = torch.randn((w,), generator=g, device=dev)
+        slope = torch.rand((w,), generator=g, device=dev)
+        out = torch.empty((8, 92, 164, width), dtype=torch.bfloat16, device=dev)
+        epi.dense_epilogue(y, bias, slope, out, off)
+        if not torch.equal(out[..., off:off + w], epi.dense_epilogue_plain(y, bias, slope)):
+            raise AssertionError(f"dense_epilogue ({w} of {width} at {off}): not bit-equal")
+        b16, s16 = bias.to(torch.bfloat16), slope.to(torch.bfloat16)
+
+        def unfused():
+            t = torch.add(y, b16).permute(0, 3, 1, 2)           # prelu's channels: dim 1
+            out[..., off:off + w].copy_(F.prelu(t, s16).permute(0, 2, 3, 1))
+
+        k_ms, p_ms = _alternate(torch, unfused,
+                                lambda: epi.dense_epilogue(y, bias, slope, out, off), 10)
+        rows[f"{w}/{width}@{off}"] = {"ms": k_ms, "plain_ms": p_ms,
+                                      **_bound(2 * _nbytes(y), 3 * y.numel(), F32_FLOPS)}
+        _say("b", f"dense_epilogue (8, 92, 164) pixels, {w} channels into {width} at {off}: "
+                  f"bit-equal: pass; kernel {k_ms:.4f} ms, bound "
+                  f"{rows[f'{w}/{width}@{off}']['bound_ms']:.4f} ms (bytes), unfused bias + "
+                  f"prelu + copy {p_ms:.4f} ms ({card})")
+    first = rows["128/384@128"]
+    record["dense_epilogue"] = {"max_abs_err": 0.0, "ms": first["ms"],
+                                "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                                "bound_by": first["bound_by"], "library_ms": None,
+                                "shapes": rows}
+
+    rng = np.random.default_rng(25)
+    k = 96
+    prior = torch.from_numpy(rng.normal(size=(8, 26, k, k)).astype(np.float32)).to(dev)
+    ok = torch.from_numpy(rng.random((8, 26, k, k)) < 0.02).to(dev)
+    scores = torch.from_numpy(rng.random((8, 25, k)).astype(np.float32)).to(dev)
+    limits = torch.from_numpy(rng.integers(1, k + 1, (8, 26)).astype(np.int32)).to(dev)
+    tables = (*paf_mod.candidates(prior, ok, scores, min(512, k * k), BODY25), limits)
+    kw = dict(k_slots=k, n_conn=k, max_people=256, skeleton=BODY25)
+    got = assoc_mod.assoc(*tables, **kw)
+    want = assoc_mod.assoc_plain(*tables, **kw)
+    for key in want:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"assoc at 25 parts: {key} differs")
+    k_ms, p_ms = _alternate(torch, lambda: assoc_mod.assoc_plain(*tables, **kw),
+                            lambda: assoc_mod.assoc(*tables, **kw), 2)
+    bound = _bound(_nbytes(*tables, *want.values()), 0, F32_FLOPS)
+    record["assoc"]["body25"] = {"ms": k_ms, "plain_ms": p_ms, **bound}
+    _say("b", f"assoc at 25 parts, batch 8, K=96, 26 limbs: {int(want['active'].sum())} rows, "
+              f"bit-equal: pass; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms (bytes) ({card})")
+
+
+def _body25_path(torch, np, est, imgs8, card: str) -> None:
+    """Phase c's BODY_25 row: ``PoseEstimator(arch="body25")`` on the batch
+    that the COCO estimator ``est`` answers at 4 scales, with the launches
+    held exactly to COCO's: the same block1, pyramid_peaks, sample and
+    assoc launches (the decode is shared, over 25 parts), and 99 epilogues
+    a forward (prelu4_2, the two CPM convs, 16 in each of the 6 stages),
+    one forward a scale, each counted by ``net.dense_epilogue`` too."""
+    from tpupose_torch import ops
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.infer import PoseEstimator
+    from tpupose_torch.skeletons import BODY25
+    from tpupose_torch.utils import profiling
+
+    _, coco_sorted = _sorted_order_calls(torch, lambda: est.process_batch(imgs8))
+    coco = ops.launch_counts()
+    est25 = PoseEstimator(DEFAULT, seed=0, device="cuda", arch="body25")
+    people, n_sorted = _sorted_order_calls(torch, lambda: est25.process_batch(imgs8))
+    counts, counted = ops.launch_counts(), profiling.counters().get("net.dense_epilogue", 0)
+    epilogues = 99 * len(DEFAULT.inference.scale_search)
+    want = {**coco, "peak_tables": n_sorted, "dense_epilogue": epilogues}
+    if coco["peak_tables"] != coco_sorted or counts != want or counted != epilogues:
+        raise AssertionError(f"BODY_25 launches over one batch: {counts} (net.dense_epilogue "
+                             f"{counted}), not {want}")
+    if len(people) != len(imgs8):
+        raise AssertionError("BODY_25 process_batch returned the wrong number of images")
+    for p in (pp for img in people for pp in img):
+        vals = [p["score"]] + [v for kp in p["keypoints"].values() for v in kp.values()]
+        if not set(p["keypoints"]) <= set(BODY25.parts) or not np.isfinite(vals).all():
+            raise AssertionError(f"BODY_25 person with parts {sorted(p['keypoints'])}")
+    _say("c", f"arch='body25': process_batch {len(imgs8)}x368x368 x 4 scales: "
+              f"{sum(map(len, people))} people; launches {counts} ({card})")
+    del est25
 
 
 def _redesigned_times(torch, np, data_path: str) -> dict:
@@ -1456,7 +1562,7 @@ def _multidevice_phase(torch, np, card: str, data_dir: str) -> dict:
     overflow = any(bool((torch.isfinite(f).sum(-1) > k).any()) for f, _, _ in scored)
     # the batch-wide switch: each replica's chunk in the sorted order, or neither
     want_counts = {"block1": 8, "pyramid_peaks": 2, "sample": 2, "assoc": 2, "gt": 0, "peaks": 0,
-                   "peak_tables": 2 * overflow}
+                   "peak_tables": 2 * overflow, "dense_epilogue": 0}
     if c4 != want_counts:
         raise AssertionError(f"DataParallelEstimator launches {c4}, want {want_counts}")
     for i, s in enumerate(scored):
@@ -1703,7 +1809,7 @@ def _multidevice_phase(torch, np, card: str, data_dir: str) -> dict:
     (rc, err), n_sorted = _sorted_order_calls(torch, serve_dp)
     c8s = count(counts)
     want_serve = {"block1": 4, "pyramid_peaks": 1, "sample": 1, "assoc": 1, "gt": 0, "peaks": 0,
-                  "peak_tables": n_sorted}
+                  "peak_tables": n_sorted, "dense_epilogue": 0}
     if c8s != want_serve:
         raise AssertionError(f"serve --dp auto, one request: launches {c8s}, want {want_serve}")
     served = PoseEstimator(DEFAULT, params=restore_params(os.path.join(data_dir, "weights")),
@@ -1962,7 +2068,7 @@ def _deploy_phase(torch, np, params, card: str, images: list, bodies: list) -> d
                                            lambda: est_full.process_batch(inputs["full2"]))):
         live[name], n_sorted[name] = _sorted_order_calls(torch, run)
     want_launches = {"block1": 4, "pyramid_peaks": 1, "sample": 1, "assoc": 1, "gt": 0,
-                     "peaks": 0}
+                     "peaks": 0, "dense_epilogue": 0}
     want_full = {**want_launches, "pyramid_peaks": 0, "sample": 0, "peaks": 1}
     counts = dict.fromkeys((*want_launches, "peak_tables"), 0)
     for name in _DEPLOY_BATCHES:
@@ -2799,6 +2905,7 @@ def main(parent: str | None = None) -> int:
               f"{c_plain_ms:.3f} ms, chain floor {floor['crowded scenes']:.4f} ms "
               f"({assoc_stats['crowded scenes'][1]} steps); SM clock {clock_now:.0f} MHz now, "
               f"{clock_max:.0f} at most ({card})")
+    _body25_kernels(torch, np, card, record)
 
     # gt: the training shape, some joints absent, two persons overlapping,
     # one sample empty, a random mask
@@ -2973,6 +3080,7 @@ def main(parent: str | None = None) -> int:
             raise AssertionError("non-finite value in the 720p people JSON")
     _say("c", f"process_batch on one 720x1280 frame x 4 scales: {len(people720[0])} people; "
               f"launches {counts720}")
+    _body25_path(torch, np, est, imgs8, card)
     ref = OpenPose(DEFAULT.model.num_stages, dtype=torch.float32)
     ref.load_state_dict(est.model.state_dict())
     ref.to(dev, memory_format=torch.channels_last).eval()
@@ -2994,7 +3102,7 @@ def main(parent: str | None = None) -> int:
     people8f, n_sorted = _sorted_order_calls(torch, lambda: est_full.process_batch(imgs8))
     counts_full = ops.launch_counts()
     want_full = {"block1": 4, "pyramid_peaks": 0, "sample": 0, "assoc": 1, "gt": 0, "peaks": 1,
-                 "peak_tables": n_sorted}
+                 "peak_tables": n_sorted, "dense_epilogue": 0}
     if counts_full != want_full:
         raise AssertionError(f"launches over one full-res batch: {counts_full}, not {want_full}")
     if len(people8f) != 8:

@@ -158,7 +158,7 @@ def test_main_prints_one_line_with_every_key(tiny_run):
     assert "bench: kernel launches " in err
     launches = json.loads(err.split("bench: kernel launches ")[1].splitlines()[0])
     assert set(launches) == {"block1", "pyramid_peaks", "sample", "assoc", "gt", "peaks",
-                             "peak_tables"}
+                             "peak_tables", "dense_epilogue"}
     assert not any(launches.values())
 
 

@@ -7,9 +7,11 @@ imports no jax, so it also runs where only torch is installed:
 
 Tolerances: block1 within the bf16 bound of tests/test_pallas_block1.py
 (against an f32 truth); pyramid peaks the same peak mask and values
-within 1e-5; sample within 1e-5; both on non-finite maps with NaN, +inf
-and -inf at the plain version's places and the bits of every non-finite
-output equal; assoc bit-equal; peaks bit-equal; peak_tables bit-equal; the
+within 1e-5 (also at BODY_25's 25 channels, a last group of one); sample
+within 1e-5; both on non-finite maps with NaN, +inf and -inf at the plain
+version's places and the bits of every non-finite output equal; assoc
+bit-equal (COCO-18 and BODY_25); dense_epilogue bit-equal; peaks
+bit-equal; peak_tables bit-equal; the
 decode's integer tables equal and floats within 1e-4 (scale-space and
 full-res); gt the same masks and values within 1e-6; a small train step
 within 1e-4 (losses) of the CPU.
@@ -464,11 +466,120 @@ def test_assoc_kernel_bit_equal(cuda, seed, k, density):
     out = {key: torch.empty_like(v) for key, v in want.items()}
     ins = [t.contiguous() for t in (ts, ta, tb, sa, sb, limits.to(torch.int32))]
     pairs = torch.as_tensor(topology.decode_limb_tables()[0], dtype=torch.int32).to(cuda)
-    assert scan(*(t.data_ptr() for t in ins), pairs.data_ptr(), ts.shape[0], 19, ts.shape[2], k, k,
-                256, *(out[key].data_ptr() for key in ("rows", "score", "cnt", "active", "stamp")),
+    assert scan(*(t.data_ptr() for t in ins), pairs.data_ptr(), 18, (1 << 17) - 1, ts.shape[0],
+                19, ts.shape[2], k, k, 256,
+                *(out[key].data_ptr() for key in ("rows", "score", "cnt", "active", "stamp")),
                 torch.cuda.current_stream().cuda_stream) == 0
     for key in want:
         assert torch.equal(out[key], want[key]), key
+
+
+@pytest.mark.parametrize("seed,k,density", [(0, 16, 0.1), (1, 16, 0.7), (2, 96, 0.02),
+                                            (3, 96, 0.3)])
+def test_assoc_kernel_bit_equal_at_25_parts(cuda, seed, k, density):
+    """assoc<25> over BODY_25's 26 limbs (its seeding mask leaves out limbs
+    18 and 19) against assoc_plain, bit for bit, and its scan-on-every-step
+    path."""
+    from tpupose_torch.decode.paf import candidates
+    from tpupose_torch.ops import assoc as assoc_mod
+    from tpupose_torch.skeletons import BODY25
+
+    rng = np.random.default_rng(seed)
+    prior = torch.from_numpy(rng.normal(size=(3, 26, k, k)).astype(np.float32)).to(cuda)
+    ok = torch.from_numpy(rng.random((3, 26, k, k)) < density).to(cuda)
+    limits = torch.from_numpy(rng.integers(1, k + 1, (3, 26)).astype(np.int32)).to(cuda)
+    scores = torch.from_numpy(rng.random((3, 25, k)).astype(np.float32)).to(cuda)
+    ts, ta, tb, sa, sb = candidates(prior, ok, scores, min(512, k * k), BODY25)
+    kw = dict(k_slots=k, n_conn=k, max_people=256, skeleton=BODY25)
+    got = assoc(ts, ta, tb, sa, sb, limits, **kw)
+    want = assoc_plain(ts, ta, tb, sa, sb, limits, **kw)
+    assert int(want["active"].sum()) > 0 and got["rows"].shape == (3, 256, 25)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    scan = assoc_mod.KERNEL.entry("tp_assoc_scan", assoc_mod.KERNEL.argtypes)
+    out = {key: torch.empty_like(v) for key, v in want.items()}
+    ins = [t.contiguous() for t in (ts, ta, tb, sa, sb, limits)]
+    pairs = torch.as_tensor(BODY25.limb_tables()[0], dtype=torch.int32).to(cuda)
+    assert scan(*(t.data_ptr() for t in ins), pairs.data_ptr(), 25, BODY25.seed_mask, 3, 26,
+                ts.shape[2], k, k, 256,
+                *(out[key].data_ptr() for key in ("rows", "score", "cnt", "active", "stamp")),
+                torch.cuda.current_stream().cuda_stream) == 0
+    for key in want:
+        assert torch.equal(out[key], want[key]), key
+
+
+@pytest.mark.parametrize("kind", ["clean", "nan", "+inf"])
+def test_pyramid_peaks_kernel_at_25_channels(cuda, kind):
+    """BODY_25's 25 part channels (groups of 3: the last holds one) of a
+    26-channel map against the plain version, clean and poisoned in the
+    last group's channel."""
+    rng = np.random.default_rng(25)
+    maps = _low_maps(rng, 26, 2, cuda)
+    if kind != "clean":
+        maps[1][1, 5, 7, 24] = float("nan") if kind == "nan" else float("inf")
+    space = ScaleSpace(maps, GEOMS, (368, 368))
+    got = pyramid_peak_scores(space, 25, 3.0, 0.1)
+    want = pyramid_peak_scores_plain(space, 25, 3.0, 0.1)
+    assert got.shape == (2, 25, 368 * 368)
+    if kind == "clean":
+        assert torch.isfinite(want[:, 24]).sum() > 10
+    _same_classes(got, want, 1e-5)
+
+
+# (w, buffer width, offset) of every epilogue of the BODY_25 network
+_EPILOGUES = [(96, 288, 0), (96, 288, 96), (96, 288, 192), (128, 384, 0), (128, 384, 128),
+              (128, 384, 256), (256, 256, 0), (512, 512, 0), (128, 128, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w,width,off", _EPILOGUES)
+def test_dense_epilogue_kernel_bit_equal(cuda, w, width, off, dtype):
+    """csrc/dense_epilogue.cu against its plain version, bit for bit, at
+    every (w, buffer width, offset) of the network, over 2 x 23 x 41
+    pixels (not a multiple of 8): the slice written, the rest of the
+    buffer untouched, and with ``keep`` the input overwritten."""
+    from tpupose_torch.ops import dense_epilogue as epi
+
+    g = torch.Generator(device=cuda).manual_seed(w * 7 + off)
+    y = torch.randn((2, 23, 41, w), generator=g, device=cuda).to(dtype)
+    bias = torch.randn((w,), generator=g, device=cuda)
+    slope = torch.rand((w,), generator=g, device=cuda)
+    want = epi.dense_epilogue_plain(y, bias, slope)
+    for keep in (False, True):
+        out = torch.full((2, 23, 41, width), float("nan"), device=cuda).to(dtype)
+        mine = y.clone()
+        before = epi.KERNEL.launches
+        epi.dense_epilogue(mine, bias, slope, out, off, keep)
+        torch.cuda.synchronize()
+        assert epi.KERNEL.launches == before + 1
+        assert torch.equal(out[..., off:off + w], want)
+        assert torch.isnan(torch.cat([out[..., :off], out[..., off + w:]], -1).float()).all()
+        assert torch.equal(mine, want if keep else y)
+
+
+def test_body25_network_on_the_card_against_the_reference(cuda):
+    """OpenPoseBody25 (block1 and dense_epilogue kernels, cuDNN) against
+    reference_impl/body25_ref.py on the card, f32 and bf16, 2 x 184 x 248:
+    f32 within 1e-4 of the output's scale (cuDNN's f32 convs sum in their
+    own order), bf16 within 0.05 of it (block1's kernel and cuDNN round
+    other bf16 values than the reference's convs)."""
+    from tpupose_torch.models.body25 import OpenPoseBody25
+    from tpupose_torch.reference_impl import body25_ref
+
+    model = OpenPoseBody25(dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(7))
+    sd = {k: v.detach().to(cuda) for k, v in model.state_dict().items()}
+    x = (torch.rand((2, 184, 248, 3), generator=torch.Generator().manual_seed(8)) - 0.5).to(cuda)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 0.05)):
+        net = OpenPoseBody25(dtype=dtype, pallas_block1=True)
+        net.load_state_dict(sd)
+        net = net.to(cuda, memory_format=torch.channels_last).eval()
+        with torch.no_grad():
+            (paf, heat), = net(x)
+            want_paf, want_heat = body25_ref.Net(sd, str(dtype).split(".")[1])(x)
+        for got, want in ((paf, want_paf), (heat, want_heat)):
+            scale = want.abs().max().item()
+            assert (got - want).abs().max().item() <= tol * scale
 
 
 @pytest.mark.parametrize("value", [float("nan"), float("inf"), -float("inf")])
@@ -1090,7 +1201,7 @@ def test_bench_device_rate_and_latency_launch_the_inference_kernels(cuda):
     # 3 program calls at 4 scales, then 1 + 3 + 1 + 3 at scale 1.0
     sorted_calls = profiling.counters().get("decode.tables.sorted", 0)
     assert counts == {"block1": 3 * 4 + 8, "pyramid_peaks": 11, "sample": 11, "assoc": 11,
-                      "gt": 0, "peaks": 0, "peak_tables": sorted_calls}, counts
+                      "gt": 0, "peaks": 0, "peak_tables": sorted_calls, "dense_epilogue": 0}, counts
 
 
 # --- the program's spans ----------------------------------------------------------------------

@@ -12,8 +12,14 @@
 //     P partial people: a connection matching one row extends it with
 //     endpoint B (if B's slot differs), matching two rows merges them if
 //     disjoint (else extends the older), matching none seeds a row at the
-//     first free slot (limbs 17-18 never seed; seeds drop when full);
-//     "older" is the lower creation stamp, ties to the first index.
+//     first free slot (only the limbs of seed_mask seed: COCO-18's first
+//     17, BODY_25's all but the shoulder-ear limbs 18-19; seeds drop when
+//     full); "older" is the lower creation stamp, ties to the first index.
+//
+// The skeleton's part count is a template parameter (kParts, instantiated
+// at 18 and 25: a warp lane holds one part of a row, so at most 32); its
+// limbs (L <= 32, a warp each in phase 1) and their part pairs are
+// arguments.
 //
 // What bounds it on the H100: the latency of a sequential chain, not
 // bytes or FLOPs: the contract fixes the order of phase 2, and each of its
@@ -35,7 +41,7 @@
 //     one.
 //   * Phase 2: one warp, no block barrier. The row table is kept
 //     part-major in shared memory (pitch P + 1, so that a part of 32 rows
-//     and a row of 18 parts are both read without bank conflicts), and
+//     and a row of kParts parts are both read without bank conflicts), and
 //     beside it an index from each peak to the row that holds it. A step
 //     reads the index at its two peaks and knows the matched rows, their
 //     number and the case without looking at the table. A merge moves its
@@ -48,7 +54,7 @@
 //     keeps their active bits in a register, and tests them against the
 //     two peaks; the match count and the two matched rows come from warp
 //     reductions. The first free row comes from another reduction. A
-//     merge or a seed is written by 18 lanes, one part each, an extend and
+//     merge or a seed is written by kParts lanes, one part each, an extend and
 //     the running score and count by lane 0, with the reference's f32
 //     addition order.
 //
@@ -66,8 +72,6 @@
 
 namespace {
 
-constexpr int kParts = 18;
-constexpr int kSeedLimbs = 17;
 constexpr int kBigStamp = 1 << 30;
 constexpr int kMaxSlots = 32 * 32;     // a K-bit set over the 32 lanes
 constexpr int kMaxPeople = 32 * 32;    // an active bit a row, 32 rows a lane
@@ -75,20 +79,21 @@ constexpr unsigned kAll = 0xffffffffu;
 
 constexpr int kDup = -2;               // an index entry: the peak may sit in several rows
 
-size_t smem_bytes(int limbs, int c, int p, int k) {
+size_t smem_bytes(int parts, int limbs, int c, int p, int k) {
   return 5 * static_cast<size_t>(limbs) * c * 4 + static_cast<size_t>(limbs) * 4 +
-         static_cast<size_t>(kParts) * (p + 1) * 4 + 3 * static_cast<size_t>(p) * 4 +
-         static_cast<size_t>(kParts) * k * 4 + p;
+         static_cast<size_t>(parts) * (p + 1) * 4 + 3 * static_cast<size_t>(p) * 4 +
+         static_cast<size_t>(parts) * k * 4 + p;
 }
 
 // kBlocks: 32-row blocks of the table at most (P <= 32 * kBlocks), so that
 // a scan is unrolled and its loads issued together; kScanOnly: every step
 // scans (the test entry tp_assoc_scan holds that path to the plain version)
-template <int kBlocks, bool kScanOnly>
+template <int kParts, int kBlocks, bool kScanOnly>
 __global__ void __launch_bounds__(1024) assoc_kernel(const float* __restrict__ ts, const int* __restrict__ ta,
                              const int* __restrict__ tb, const float* __restrict__ sa,
                              const float* __restrict__ sb, const int* __restrict__ limits,
                              const int* __restrict__ part_pairs,  // (L, 2)
+                             unsigned seed_mask,                  // bit l: limb l seeds
                              int limbs, int cap, int k, int n_conn, int P,
                              int* __restrict__ out_rows, float* __restrict__ out_score,
                              int* __restrict__ out_cnt, unsigned char* __restrict__ out_active,
@@ -109,7 +114,7 @@ __global__ void __launch_bounds__(1024) assoc_kernel(const float* __restrict__ t
   float* s_score = reinterpret_cast<float*>(s_rows + kParts * pitch);
   int* s_cnt = reinterpret_cast<int*>(s_score + P);
   int* s_stamp = s_cnt + P;
-  int* s_idx = s_stamp + P;                          // (18 * k,) the row of each peak
+  int* s_idx = s_stamp + P;                          // (kParts * k,) the row of each peak
   unsigned char* s_active = reinterpret_cast<unsigned char*>(s_idx + kParts * k);
 
   for (int i = tid; i < kParts * pitch; i += blockDim.x) s_rows[i] = -1;
@@ -295,7 +300,7 @@ __global__ void __launch_bounds__(1024) assoc_kernel(const float* __restrict__ t
             }
             if (lane == (j2 & 31)) act &= ~(1u << (j2 >> 5));
           }
-        } else if (found == 0 && l < kSeedLimbs) {
+        } else if (found == 0 && ((seed_mask >> l) & 1u)) {
           // the first free row: an inactive one below the mark, else the mark
           const int n_blocks = (seeded + 31) >> 5;
           const unsigned span = n_blocks >= 32 ? kAll : (1u << n_blocks) - 1u;
@@ -338,63 +343,70 @@ __global__ void __launch_bounds__(1024) assoc_kernel(const float* __restrict__ t
   }
 }
 
-template <int kBlocks, bool kScanOnly>
-cudaError_t launch(int batch, int limbs, size_t smem, void* stream, const void* ts,
-                   const void* ta, const void* tb, const void* sa, const void* sb,
-                   const void* limits, const void* part_pairs, int cap, int k, int n_conn, int P,
-                   void* rows, void* score, void* cnt, void* active, void* stamp) {
-  cudaError_t err = tp_allow_smem(assoc_kernel<kBlocks, kScanOnly>, smem);
+struct Args {
+  const void *ts, *ta, *tb, *sa, *sb, *limits, *part_pairs;
+  unsigned seed_mask;
+  int batch, limbs, cap, k, n_conn, P;
+  void *rows, *score, *cnt, *active, *stamp, *stream;
+};
+
+template <int kParts, int kBlocks, bool kScanOnly>
+cudaError_t launch(const Args& a, size_t smem) {
+  cudaError_t err = tp_allow_smem(assoc_kernel<kParts, kBlocks, kScanOnly>, smem);
   if (err != cudaSuccess) return err;
-  assoc_kernel<kBlocks, kScanOnly><<<batch, 32 * limbs, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ts), static_cast<const int*>(ta), static_cast<const int*>(tb),
-      static_cast<const float*>(sa), static_cast<const float*>(sb),
-      static_cast<const int*>(limits), static_cast<const int*>(part_pairs), limbs, cap, k,
-      n_conn, P, static_cast<int*>(rows), static_cast<float*>(score), static_cast<int*>(cnt),
-      static_cast<unsigned char*>(active), static_cast<int*>(stamp));
+  assoc_kernel<kParts, kBlocks, kScanOnly>
+      <<<a.batch, 32 * a.limbs, smem, static_cast<cudaStream_t>(a.stream)>>>(
+          static_cast<const float*>(a.ts), static_cast<const int*>(a.ta),
+          static_cast<const int*>(a.tb), static_cast<const float*>(a.sa),
+          static_cast<const float*>(a.sb), static_cast<const int*>(a.limits),
+          static_cast<const int*>(a.part_pairs), a.seed_mask, a.limbs, a.cap, a.k, a.n_conn,
+          a.P, static_cast<int*>(a.rows), static_cast<float*>(a.score),
+          static_cast<int*>(a.cnt), static_cast<unsigned char*>(a.active),
+          static_cast<int*>(a.stamp));
   return cudaGetLastError();
 }
 
+template <int kParts, bool kScanOnly>
+cudaError_t run_parts(const Args& a, size_t smem) {
+  if (a.P <= 64) return launch<kParts, 2, kScanOnly>(a, smem);
+  if (a.P <= 256) return launch<kParts, 8, kScanOnly>(a, smem);
+  return launch<kParts, 32, kScanOnly>(a, smem);
+}
+
 template <bool kScanOnly>
-cudaError_t run(const void* ts, const void* ta, const void* tb, const void* sa, const void* sb,
-                const void* limits, const void* part_pairs, int batch, int limbs, int cap, int k,
-                int n_conn, int P, void* rows, void* score, void* cnt, void* active, void* stamp,
-                void* stream) {
-  if (P < 1 || P > kMaxPeople || limbs < 1 || limbs > 32 || k < 1 || k > kMaxSlots ||
-      n_conn < 1 || cap < 0)
+cudaError_t run(const Args& a, int parts) {
+  if (a.P < 1 || a.P > kMaxPeople || a.limbs < 1 || a.limbs > 32 || a.k < 1 ||
+      a.k > kMaxSlots || a.n_conn < 1 || a.cap < 0 || (parts != 18 && parts != 25))
     return cudaErrorInvalidValue;
-  if (batch == 0) return cudaSuccess;
-  const size_t smem = smem_bytes(limbs, n_conn, P, k);
+  if (a.batch == 0) return cudaSuccess;
+  const size_t smem = smem_bytes(parts, a.limbs, a.n_conn, a.P, a.k);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (P <= 64)
-    return launch<2, kScanOnly>(batch, limbs, smem, stream, ts, ta, tb, sa, sb, limits,
-                                part_pairs, cap, k, n_conn, P, rows, score, cnt, active, stamp);
-  if (P <= 256)
-    return launch<8, kScanOnly>(batch, limbs, smem, stream, ts, ta, tb, sa, sb, limits,
-                                part_pairs, cap, k, n_conn, P, rows, score, cnt, active, stamp);
-  return launch<32, kScanOnly>(batch, limbs, smem, stream, ts, ta, tb, sa, sb, limits, part_pairs,
-                               cap, k, n_conn, P, rows, score, cnt, active, stamp);
+  return parts == 18 ? run_parts<18, kScanOnly>(a, smem) : run_parts<25, kScanOnly>(a, smem);
 }
 
 }  // namespace
 
 // ts/sa/sb (B, L, cap) f32, ta/tb (B, L, cap) i32 slots below k, limits
-// (B, L) i32, part_pairs (L, 2) i32; outputs rows (B, P, 18) i32, score
+// (B, L) i32, part_pairs (L, 2) i32 below parts (18 or 25), seed_mask bit l
+// set where limb l may seed a row; outputs rows (B, P, parts) i32, score
 // (B, P) f32, cnt (B, P) i32, active (B, P) u8, stamp (B, P) i32. One
 // block of a warp per limb per image; L <= 32, k <= 1024, P <= 1024.
 extern "C" int tp_assoc(const void* ts, const void* ta, const void* tb, const void* sa,
-                        const void* sb, const void* limits, const void* part_pairs, int batch,
-                        int limbs, int cap, int k, int n_conn, int P, void* rows, void* score,
-                        void* cnt, void* active, void* stamp, void* stream) {
-  return run<false>(ts, ta, tb, sa, sb, limits, part_pairs, batch, limbs, cap, k, n_conn, P, rows,
-                    score, cnt, active, stamp, stream);
+                        const void* sb, const void* limits, const void* part_pairs, int parts,
+                        unsigned seed_mask, int batch, int limbs, int cap, int k, int n_conn,
+                        int P, void* rows, void* score, void* cnt, void* active, void* stamp,
+                        void* stream) {
+  return run<false>({ts, ta, tb, sa, sb, limits, part_pairs, seed_mask, batch, limbs, cap, k,
+                     n_conn, P, rows, score, cnt, active, stamp, stream}, parts);
 }
 
 // The same with every phase-2 step scanning the rows (the path the kernel
 // takes where its index cannot say), for the card tests.
 extern "C" int tp_assoc_scan(const void* ts, const void* ta, const void* tb, const void* sa,
                              const void* sb, const void* limits, const void* part_pairs,
-                             int batch, int limbs, int cap, int k, int n_conn, int P, void* rows,
-                             void* score, void* cnt, void* active, void* stamp, void* stream) {
-  return run<true>(ts, ta, tb, sa, sb, limits, part_pairs, batch, limbs, cap, k, n_conn, P, rows,
-                   score, cnt, active, stamp, stream);
+                             int parts, unsigned seed_mask, int batch, int limbs, int cap, int k,
+                             int n_conn, int P, void* rows, void* score, void* cnt, void* active,
+                             void* stamp, void* stream) {
+  return run<true>({ts, ta, tb, sa, sb, limits, part_pairs, seed_mask, batch, limbs, cap, k,
+                    n_conn, P, rows, score, cnt, active, stamp, stream}, parts);
 }

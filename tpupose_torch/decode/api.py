@@ -13,6 +13,10 @@ full K x K grid, greedy accept over the top min(512, K^2) candidates,
 assembly into max(max_people, scan_people_capacity) partial people. The
 reference's adaptive tiers and decode groups are bit-identical to this
 path by construction, so their config fields change nothing here.
+
+Every function takes the ``skeleton`` of the maps (``skeletons.COCO18``
+by default; ``skeletons.BODY25``): its parts are the heat channels that
+hold peaks, its limbs the PAF channel pairs read and the decode order.
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpupose_torch import topology
 from tpupose_torch.config import InferenceConfig
 from tpupose_torch.decode import assemble as _assemble
 from tpupose_torch.decode import paf as _paf
@@ -31,18 +34,21 @@ from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.ops import assoc as _assoc_op
 from tpupose_torch.ops import peaks as _peaks_op
 from tpupose_torch.ops import pyramid_peaks as _pyramid_op
+from tpupose_torch.skeletons import COCO18, Skeleton
 
 
-def peak_scores_batch(heatmaps, cfg: InferenceConfig, valid_hw=None) -> tuple[torch.Tensor, int]:
+def peak_scores_batch(heatmaps, cfg: InferenceConfig, valid_hw=None,
+                      skeleton: Skeleton = COCO18) -> tuple[torch.Tensor, int]:
     """The first half of ``decode_impl_batch``: the masked peak scores
-    (B, 18, H*W) of the heat maps (full-res or a ScaleSpace), -inf off-peak
-    and outside each image's ``valid_hw`` rectangle, and the map width."""
+    (B, parts, H*W) of the heat maps (full-res or a ScaleSpace), -inf
+    off-peak and outside each image's ``valid_hw`` rectangle, and the map
+    width."""
+    parts = skeleton.num_parts
     if isinstance(heatmaps, ScaleSpace):
-        flats = _pyramid_op.pyramid_peak_scores(heatmaps, topology.NUM_PARTS, cfg.peak_sigma,
-                                                cfg.thre1)
+        flats = _pyramid_op.pyramid_peak_scores(heatmaps, parts, cfg.peak_sigma, cfg.thre1)
         w = heatmaps.out_hw[1]
     else:
-        flats = _peaks_op.peak_scores(heatmaps, topology.NUM_PARTS, cfg.peak_sigma, cfg.thre1)
+        flats = _peaks_op.peak_scores(heatmaps, parts, cfg.peak_sigma, cfg.thre1)
         w = heatmaps.shape[2]
     b, c, n = flats.shape
     if valid_hw is not None:
@@ -54,7 +60,8 @@ def peak_scores_batch(heatmaps, cfg: InferenceConfig, valid_hw=None) -> tuple[to
 
 
 def decode_scores_batch(flats: torch.Tensor, w: int, pafs, cfg: InferenceConfig,
-                        overflow: bool | None = None) -> dict[str, torch.Tensor]:
+                        overflow: bool | None = None,
+                        skeleton: Skeleton = COCO18) -> dict[str, torch.Tensor]:
     """The second half of ``decode_impl_batch``: peak tables, pair scores,
     association and assembly from ``peak_scores_batch``'s output.
     ``overflow`` forces the peak tables' order (``decode.peaks.peak_tables``)
@@ -66,11 +73,13 @@ def decode_scores_batch(flats: torch.Tensor, w: int, pafs, cfg: InferenceConfig,
     peaks = {key: v.reshape(b, c, k) for key, v in tables.items()}
 
     prior, ok, n_a, n_b = _paf.pair_scores(
-        pafs, peaks, mid_num=cfg.mid_num, thre2=cfg.thre2, min_ratio=cfg.connect_min_ratio)
-    ts, ta, tb, sa, sb = _paf.candidates(prior, ok, peaks["scores"], min(512, k * k))
+        pafs, peaks, mid_num=cfg.mid_num, thre2=cfg.thre2, min_ratio=cfg.connect_min_ratio,
+        skeleton=skeleton)
+    ts, ta, tb, sa, sb = _paf.candidates(prior, ok, peaks["scores"], min(512, k * k), skeleton)
     raw = _assoc_op.assoc(ts, ta, tb, sa, sb, torch.minimum(n_a, n_b), k_slots=k,
                           n_conn=min(cfg.max_connections, k),
-                          max_people=max(cfg.max_people, cfg.scan_people_capacity))
+                          max_people=max(cfg.max_people, cfg.scan_people_capacity),
+                          skeleton=skeleton)
     people = _assemble.cull_and_compact(
         raw["rows"], raw["score"], raw["cnt"], raw["active"], raw["stamp"],
         cfg.min_subset_cnt, cfg.min_subset_score)
@@ -82,8 +91,8 @@ def decode_scores_batch(flats: torch.Tensor, w: int, pafs, cfg: InferenceConfig,
     }
 
 
-def decode_impl_batch(heatmaps, pafs, cfg: InferenceConfig,
-                      valid_hw=None) -> dict[str, torch.Tensor]:
+def decode_impl_batch(heatmaps, pafs, cfg: InferenceConfig, valid_hw=None,
+                      skeleton: Skeleton = COCO18) -> dict[str, torch.Tensor]:
     """Batched decode. ``heatmaps``: (B, H, W, 19) or a ScaleSpace of
     (B, Hl, Wl, 19) maps; ``pafs``: (B, H, W, 38) or a ScaleSpace of
     (B, Hl, Wl, 38) maps.
@@ -94,18 +103,19 @@ def decode_impl_batch(heatmaps, pafs, cfg: InferenceConfig,
     valid per person, and the peak tables peak_xs/peak_ys/peak_scores
     (B, 18, max_peaks) that resolve the ids.
     """
-    flats, w = peak_scores_batch(heatmaps, cfg, valid_hw)
-    return decode_scores_batch(flats, w, pafs, cfg)
+    flats, w = peak_scores_batch(heatmaps, cfg, valid_hw, skeleton)
+    return decode_scores_batch(flats, w, pafs, cfg, skeleton=skeleton)
 
 
-def decode_impl(heatmap, paf, cfg: InferenceConfig) -> dict[str, torch.Tensor]:
+def decode_impl(heatmap, paf, cfg: InferenceConfig,
+                skeleton: Skeleton = COCO18) -> dict[str, torch.Tensor]:
     """One image's decode: (H, W, 19) / (H, W, 38) maps, or ScaleSpaces of
     (Hl, Wl, C) maps, or one of each -> the tables of
     ``decode_impl_batch`` without the batch axis."""
     def batched(m):
         return m.map_scales(lambda t: t[None]) if isinstance(m, ScaleSpace) else m[None]
 
-    out = decode_impl_batch(batched(heatmap), batched(paf), cfg)
+    out = decode_impl_batch(batched(heatmap), batched(paf), cfg, skeleton=skeleton)
     return {key: v[0] for key, v in out.items()}
 
 
@@ -114,8 +124,9 @@ decode_maps = decode_impl
 decode_maps_batch = decode_impl_batch
 
 
-def to_people(result: dict[str, np.ndarray]) -> list[dict]:
-    """One image's tables (numpy) -> the reference's keypoint-JSON contract."""
+def to_people(result: dict[str, np.ndarray], skeleton: Skeleton = COCO18) -> list[dict]:
+    """One image's tables (numpy) -> the reference's keypoint-JSON contract,
+    keypoints named by the skeleton's parts."""
     rows = np.asarray(result["rows"])
     score = np.asarray(result["score"])
     cnt = np.asarray(result["cnt"])
@@ -129,10 +140,10 @@ def to_people(result: dict[str, np.ndarray]) -> list[dict]:
         if not valid[j]:
             continue
         kps = {}
-        for p in range(topology.NUM_PARTS):
+        for p, part in enumerate(skeleton.parts):
             pid = int(rows[j, p])
             if pid >= 0:
-                kps[topology.PARTS[p]] = {
+                kps[part] = {
                     "x": float(xs[pid]),
                     "y": float(ys[pid]),
                     "score": float(ss[pid]),

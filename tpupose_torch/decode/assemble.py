@@ -2,35 +2,37 @@
 
 Counterpart of ``tpupose/decode/assemble.py``. Accepted limb connections
 are folded, limb-major in decode order, into a fixed table of
-``max_people`` partial people (rows of 18 global peak ids, running score
-and part count, a creation stamp): a connection extends the one row it
-matches, merges the two rows it matches if they are disjoint, or seeds a
-row at the first free slot (the first 17 decode limbs only; seeds are
-dropped once the table is full).
+``max_people`` partial people (rows of a global peak id a part, running
+score and part count, a creation stamp): a connection extends the one row
+it matches, merges the two rows it matches if they are disjoint, or seeds a
+row at the first free slot (only the skeleton's seeding limbs: COCO-18's
+first 17 decode limbs, BODY_25's all but the two shoulder-ear limbs; seeds
+are dropped once the table is full).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpupose_torch import topology
+from tpupose_torch.skeletons import COCO18, Skeleton
 
 BIG_STAMP = 1 << 30
-SEED_LIMBS = 17     # the last two decode limbs never seed people
 
 
-def assemble(conns: dict[str, torch.Tensor], max_people: int) -> dict[str, torch.Tensor]:
+def assemble(conns: dict[str, torch.Tensor], max_people: int,
+             skeleton: Skeleton = COCO18) -> dict[str, torch.Tensor]:
     """Fold ``paf.greedy_accept`` tables into the raw people table,
-    vectorised over images: rows (B, P, 18) int32, score (B, P) f32, cnt
+    vectorised over images: rows (B, P, parts) int32, score (B, P) f32, cnt
     (B, P) int32, active (B, P) bool, stamp (B, P) int32 (BIG_STAMP =
     never seeded). Same tie-breaks and f32 addition order as the
     reference's ``lax.scan``."""
     b, n_limbs, _ = conns["pa"].shape
     dev = conns["pa"].device
-    pairs = topology.decode_limb_tables()[0]
+    pairs = skeleton.limb_tables()[0]
+    parts = skeleton.num_parts
     p = max_people
     n_valid = conns["n_valid"]
-    rows = torch.full((b, p, topology.NUM_PARTS), -1, dtype=torch.int32, device=dev)
+    rows = torch.full((b, p, parts), -1, dtype=torch.int32, device=dev)
     score = torch.zeros((b, p), dtype=torch.float32, device=dev)
     cnt = torch.zeros((b, p), dtype=torch.int32, device=dev)
     active = torch.zeros((b, p), dtype=torch.bool, device=dev)
@@ -60,7 +62,7 @@ def assemble(conns: dict[str, torch.Tensor], max_people: int) -> dict[str, torch
             free = active.to(torch.int8).argmin(dim=-1)     # first inactive row
             has_free = ~active[ar, free]
 
-            do_new = valid & (found == 0) & (l < SEED_LIMBS) & has_free
+            do_new = valid & (found == 0) & (l in skeleton.seeds) & has_free
             do_one = valid & (((found == 1) & needs_b) | ((found == 2) & overlap))
             do_merge = valid & (found == 2) & ~overlap
 
@@ -81,7 +83,7 @@ def assemble(conns: dict[str, torch.Tensor], max_people: int) -> dict[str, torch
             active[ar, j2] = active[ar, j2] & ~do_merge
 
             # seed a new row at the first free slot
-            new_row = torch.full((b, topology.NUM_PARTS), -1, dtype=torch.int32, device=dev)
+            new_row = torch.full((b, parts), -1, dtype=torch.int32, device=dev)
             new_row[:, ap] = pa
             new_row[:, bp] = pb
             rows[ar, free] = torch.where(do_new[:, None], new_row, rows[ar, free])

@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from tpupose_torch import topology
 from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.ops.sample import sample_avg
+from tpupose_torch.skeletons import COCO18, Skeleton
 
 
 def sample_fullres(paf: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
@@ -32,28 +32,29 @@ def sample_fullres(paf: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
         torch.float32)
 
 
-def limb_points(peaks: dict[str, torch.Tensor], out_hw, mid_num: int = 10):
+def limb_points(peaks: dict[str, torch.Tensor], out_hw, mid_num: int = 10,
+                skeleton: Skeleton = COCO18):
     """The sample points of every candidate pair of every limb.
 
-    peaks: (B, 18, K) tables. Returns (iy, ix, ux, uy, norm): int32 (B, 19,
-    K, K, mid_num) rounded, clipped points along each A -> B segment, and
-    per pair (B, 19, K, K) the unit direction and the length, in decode
-    limb order. Empty peak slots hold (0, 0), so their pairs' points all
-    coincide.
+    peaks: (B, parts, K) tables. Returns (iy, ix, ux, uy, norm): int32 (B,
+    limbs, K, K, mid_num) rounded, clipped points along each A -> B
+    segment, and per pair (B, limbs, K, K) the unit direction and the
+    length, in the skeleton's decode limb order. Empty peak slots hold
+    (0, 0), so their pairs' points all coincide.
     """
-    part_pairs, _ = topology.decode_limb_tables()
+    part_pairs, _ = skeleton.limb_tables()
     pairs = torch.as_tensor(part_pairs, dtype=torch.int64, device=peaks["xs"].device)
     out_h, out_w = out_hw
-    axf, ayf = (peaks[k][:, pairs[:, 0]].to(torch.float32) for k in ("xs", "ys"))   # (B, 19, K)
+    axf, ayf = (peaks[k][:, pairs[:, 0]].to(torch.float32) for k in ("xs", "ys"))   # (B, L, K)
     bxf, byf = (peaks[k][:, pairs[:, 1]].to(torch.float32) for k in ("xs", "ys"))
-    dx = bxf[..., None, :] - axf[..., :, None]     # (B, 19, K, K)
+    dx = bxf[..., None, :] - axf[..., :, None]     # (B, L, K, K)
     dy = byf[..., None, :] - ayf[..., :, None]
     norm = torch.sqrt(dx * dx + dy * dy)
     norm_safe = torch.clamp(norm, min=1e-8)
 
     # built on the CPU, where it equals jnp.linspace bit for bit
     t = torch.linspace(0.0, 1.0, mid_num, dtype=torch.float32).to(dx.device)
-    my = ayf[..., :, None, None] + dy[..., None] * t   # (B, 19, K, K, M)
+    my = ayf[..., :, None, None] + dy[..., None] * t   # (B, L, K, K, M)
     mx = axf[..., :, None, None] + dx[..., None] * t
     iy = torch.clamp(torch.round(my).to(torch.int32), 0, out_h - 1)
     ix = torch.clamp(torch.round(mx).to(torch.int32), 0, out_w - 1)
@@ -61,25 +62,25 @@ def limb_points(peaks: dict[str, torch.Tensor], out_hw, mid_num: int = 10):
 
 
 def pair_scores(paf, peaks: dict[str, torch.Tensor], mid_num: int = 10,
-                thre2: float = 0.05, min_ratio: float = 0.8):
+                thre2: float = 0.05, min_ratio: float = 0.8, skeleton: Skeleton = COCO18):
     """All-limb pair tables of a batch.
 
-    paf: a materialised (B, H, W, 38) map, or a ScaleSpace of per-scale
-    (B, Hl, Wl, 38) maps; peaks: (B, 18, K) tables. Returns (prior (B, 19,
-    K, K) f32, ok (B, 19, K, K) bool, n_a (B, 19), n_b (B, 19)) in decode
-    limb order.
+    paf: a materialised (B, H, W, C) map, or a ScaleSpace of per-scale
+    (B, Hl, Wl, C) maps (C: the skeleton's PAF channels, 38 for COCO-18);
+    peaks: (B, parts, K) tables. Returns (prior (B, L, K, K) f32, ok (B, L,
+    K, K) bool, n_a (B, L), n_b (B, L)) in the skeleton's decode limb order.
     """
-    part_pairs, paf_chans = topology.decode_limb_tables()
+    part_pairs, paf_chans = skeleton.limb_tables()
     pairs = torch.as_tensor(part_pairs, dtype=torch.int64, device=peaks["xs"].device)
     scale_space = isinstance(paf, ScaleSpace)
     out_h, out_w = paf.out_hw if scale_space else paf.shape[1:3]
     height = float(out_h)
-    av = peaks["valid"][:, pairs[:, 0]]     # (B, 19, K)
+    av = peaks["valid"][:, pairs[:, 0]]     # (B, L, K)
     bv = peaks["valid"][:, pairs[:, 1]]
-    iy, ix, ux, uy, norm = limb_points(peaks, (out_h, out_w), mid_num)
+    iy, ix, ux, uy, norm = limb_points(peaks, (out_h, out_w), mid_num, skeleton)
     norm_safe = torch.clamp(norm, min=1e-8)
     sample = sample_avg if scale_space else sample_fullres
-    sampled = sample(paf, iy, ix, paf_chans)           # (B, 19, K, K, M, 2)
+    sampled = sample(paf, iy, ix, paf_chans)           # (B, L, K, K, M, 2)
     score_mid = sampled[..., 0] * ux[..., None] + sampled[..., 1] * uy[..., None]
 
     mean = score_mid.mean(dim=-1)
@@ -95,15 +96,15 @@ def pair_scores(paf, peaks: dict[str, torch.Tensor], mid_num: int = 10,
     return prior, ok, av.sum(dim=-1).to(torch.int32), bv.sum(dim=-1).to(torch.int32)
 
 
-def candidates(prior, ok, scores, cap: int):
+def candidates(prior, ok, scores, cap: int, skeleton: Skeleton = COCO18):
     """Top-``cap`` candidate pairs per limb, score-descending, ties lowest
     flat index first (``lax.top_k`` order).
 
-    Returns (ts, ta, tb, sa, sb), each (B, 19, cap): prior (-inf where not
+    Returns (ts, ta, tb, sa, sb), each (B, L, cap): prior (-inf where not
     ok), A slot, B slot and the two endpoint peak scores.
     """
     b, n_limbs, k, _ = prior.shape
-    part_pairs, _ = topology.decode_limb_tables()
+    part_pairs, _ = skeleton.limb_tables()
     flat = torch.where(ok, prior, torch.full_like(prior, -torch.inf)).reshape(b, n_limbs, k * k)
     ts, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
     ts, idx = ts[..., :cap], idx[..., :cap]
@@ -117,20 +118,21 @@ def candidates(prior, ok, scores, cap: int):
     return ts, ta.to(torch.int32), tb.to(torch.int32), sa, sb
 
 
-def greedy_accept(ts, ta, tb, sa, sb, limits, k_slots: int, n_conn: int):
+def greedy_accept(ts, ta, tb, sa, sb, limits, k_slots: int, n_conn: int,
+                  skeleton: Skeleton = COCO18):
     """Greedy accept over score-sorted candidates, all images and limbs in
     lockstep (the reference's ``_greedy_accept`` per limb).
 
     A candidate is accepted when its score is finite, neither endpoint
     slot is used yet and the limb has accepted fewer than ``limits``;
     accepted connections fill slots 0.. of the limb's table in order
-    (at most ``n_conn`` kept). Returns the tables: pa/pb (B, 19, n_conn)
+    (at most ``n_conn`` kept). Returns the tables: pa/pb (B, L, n_conn)
     int32 global peak ids (part * k_slots + slot), cs/sa/sb f32
-    (connection prior, endpoint peak scores) and n_valid (B, 19) int64.
+    (connection prior, endpoint peak scores) and n_valid (B, L) int64.
     """
     b, n_limbs, cap = ts.shape
     dev = ts.device
-    pairs = topology.decode_limb_tables()[0]
+    pairs = skeleton.limb_tables()[0]
     ap_k = torch.as_tensor(pairs[:, 0], device=dev).to(torch.int32) * k_slots
     bp_k = torch.as_tensor(pairs[:, 1], device=dev).to(torch.int32) * k_slots
     ib = torch.arange(b, device=dev)[:, None]

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpupose_torch import topology
+from tpupose_torch.skeletons import COCO18, Skeleton
 from tpupose_torch.utils.profiling import annotate, count
 
 
@@ -192,9 +192,9 @@ def nms_tables(parts: torch.Tensor, smooth: torch.Tensor, max_peaks: int,
 
 
 def find_peaks(heatmap: torch.Tensor, max_peaks: int = 96, sigma: float = 3.0,
-               thre1: float = 0.1) -> dict[str, torch.Tensor]:
-    """(H, W, 19) averaged heatmap -> (18, K) peak tables: xs/ys int32,
-    scores f32 (the unsmoothed map's values), valid bool, in row-major
-    scan order."""
-    parts = heatmap[:, :, : topology.NUM_PARTS].to(torch.float32)
+               thre1: float = 0.1, skeleton: Skeleton = COCO18) -> dict[str, torch.Tensor]:
+    """(H, W, 19) averaged heatmap -> (18, K) peak tables (COCO-18; the
+    skeleton's parts): xs/ys int32, scores f32 (the unsmoothed map's
+    values), valid bool, in row-major scan order."""
+    parts = heatmap[:, :, : skeleton.num_parts].to(torch.float32)
     return nms_tables(parts, gaussian_blur(parts, sigma), max_peaks, thre1)

@@ -36,22 +36,28 @@ from tpupose_torch.config import DEFAULT, PoseConfig
 from tpupose_torch.decode.api import decode_scores_batch, peak_scores_batch, to_people
 from tpupose_torch.decode.scalespace import ScaleSpace
 from tpupose_torch.models import OpenPose, weights as weights_lib
+from tpupose_torch.models.body25 import OpenPoseBody25
 from tpupose_torch.models.openpose import DTYPES
 from tpupose_torch.ops import image as image_ops
+from tpupose_torch.skeletons import BODY25, COCO18, Skeleton
 from tpupose_torch.utils.profiling import annotate
 
 
 READOUTS = ("scalespace", "fullres")
+# the networks ``PoseEstimator(arch=...)`` builds, and the skeleton each decodes
+ARCHS = {"coco18": COCO18, "body25": BODY25}
 
 
 class Tables(dict):
     """One batch's device tables, with its sequence number ``seq`` on its
-    estimator: the ``args`` of the batch's ``infer.enqueue`` and
-    ``infer.finish`` spans, which joins them."""
+    estimator (the ``args`` of the batch's ``infer.enqueue`` and
+    ``infer.finish`` spans, which joins them) and the skeleton that names
+    its parts."""
 
-    def __init__(self, tables: dict[str, torch.Tensor], seq: int):
+    def __init__(self, tables: dict[str, torch.Tensor], seq: int, skeleton: Skeleton = COCO18):
         super().__init__(tables)
         self.seq = seq
+        self.skeleton = skeleton
 
 
 class PoseEstimator:
@@ -63,23 +69,38 @@ class PoseEstimator:
     (a reference ``.h5``, ``.caffemodel`` or torch ``.pth``/``.pt``, see
     ``models.weights.maybe_load_pretrained``) where that file exists.
     ``pretrained`` says whether the weights came from ``params`` or a file.
+
+    ``arch`` chooses the network and the skeleton the decode runs over:
+    ``"coco18"`` (``models.OpenPose``, ``cfg.model.num_stages`` stages,
+    18 parts) or ``"body25"`` (``models.body25.OpenPoseBody25``, 4 PAF and
+    2 heat stages, 25 parts; its ``params`` tree holds the PReLU slopes as
+    ``{"slope"}`` leaves under the prototxt's layer names, and no weight
+    file loads into it yet). The rest of the path is the same code.
     """
 
     def __init__(self, cfg: PoseConfig = DEFAULT, params: Any | None = None,
                  weights_path: str | None = None, seed: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", arch: str = "coco18"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PoseEstimator(device='cuda'): no CUDA device is available")
         if cfg.inference.paf_readout not in READOUTS:
             raise ValueError(f"unknown paf_readout {cfg.inference.paf_readout!r}: "
                              f"one of {READOUTS}")
+        if arch not in ARCHS:
+            raise ValueError(f"unknown arch {arch!r}: one of {tuple(ARCHS)}")
+        if arch == "body25" and weights_path:
+            raise ValueError("PoseEstimator(arch='body25'): weights come from params only")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
-        self.model = OpenPose(num_stages=cfg.model.num_stages,
-                              dtype=DTYPES[cfg.model.compute_dtype],
-                              pallas_block1=True)
+        self.skeleton = ARCHS[arch]
+        dtype = DTYPES[cfg.model.compute_dtype]
+        if arch == "body25":
+            self.model = OpenPoseBody25(dtype=dtype, pallas_block1=True)
+        else:
+            self.model = OpenPose(num_stages=cfg.model.num_stages, dtype=dtype,
+                                  pallas_block1=True)
         if params is None:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
             self.pretrained = False
@@ -154,7 +175,7 @@ class PoseEstimator:
             geoms = [s[:2] for s in sizes]
             heat_in = ScaleSpace(heats, geoms, (h, w))
             paf_in = ScaleSpace(pafs, geoms, (h, w))
-        flats, width = peak_scores_batch(heat_in, self.cfg.inference, valid_hw)
+        flats, width = peak_scores_batch(heat_in, self.cfg.inference, valid_hw, self.skeleton)
         return flats, width, paf_in
 
     def program(self, params, images: torch.Tensor, valid_hw: torch.Tensor | None,
@@ -168,7 +189,8 @@ class PoseEstimator:
         ``torch.inference_mode``, ``deploy.export_program`` under
         ``torch.no_grad``."""
         flats, width, paf_in = self._device_scores(params, images, scales, valid_hw)
-        return decode_scores_batch(flats, width, paf_in, self.cfg.inference)
+        return decode_scores_batch(flats, width, paf_in, self.cfg.inference,
+                                   skeleton=self.skeleton)
 
     @torch.inference_mode()
     def _scores(self, images: np.ndarray, scales, valid_hw):
@@ -182,7 +204,8 @@ class PoseEstimator:
         """The people tables of ``_scores``' output; ``overflow`` is the
         peak-overflow decision of a larger batch (None: of this one)."""
         flats, width, paf_in = scored
-        return decode_scores_batch(flats, width, paf_in, self.cfg.inference, overflow)
+        return decode_scores_batch(flats, width, paf_in, self.cfg.inference, overflow,
+                                   self.skeleton)
 
     @torch.inference_mode()
     def _run(self, images: np.ndarray, scales, valid_hw) -> dict[str, torch.Tensor]:
@@ -206,7 +229,7 @@ class PoseEstimator:
         seq = next(self._batches)
         with annotate("infer.enqueue", seq):
             tables = self._run(images, scales, valid_hw)
-        return images.shape[0], Tables(tables, seq)
+        return images.shape[0], Tables(tables, seq, self.skeleton)
 
     def stream(self, batches: Iterable[np.ndarray], depth: int = 2,
                scales: tuple[float, ...] | None = None) -> Iterator[list[list[dict]]]:
@@ -221,14 +244,18 @@ class PoseEstimator:
 
     @staticmethod
     def _finish(n: int, tables: dict[str, torch.Tensor]) -> list[list[dict]]:
+        """The people of ``process_batch_async``'s tables (a ``Tables``
+        names its skeleton; plain tables are COCO-18's)."""
+        skeleton = getattr(tables, "skeleton", COCO18)
         with annotate("infer.finish", getattr(tables, "seq", None)):
             host = {k: v.cpu().numpy() for k, v in tables.items()}
-            return [to_people({k: v[i] for k, v in host.items()}) for i in range(n)]
+            return [to_people({k: v[i] for k, v in host.items()}, skeleton) for i in range(n)]
 
     @torch.inference_mode()
     def maps_batch(self, images: np.ndarray, scales: tuple[float, ...] | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Multi-scale averaged (heatmaps (N, H, W, 19), pafs (N, H, W, 38))
+        """Multi-scale averaged (heatmaps (N, H, W, 19), pafs (N, H, W, 38);
+        BODY_25: 26 and 52)
         of (N, H, W, 3) images at their own resolution, on the estimator's
         device, whatever ``paf_readout`` says: what the full-res readout
         hands to the decode (``ops.image.average_upsampled`` of every
@@ -250,7 +277,8 @@ class PoseEstimator:
 
     def process(self, image: np.ndarray, draw: bool = False) -> dict:
         """One (H, W, 3) image -> {"people": [...]} (+ "canvas" overlay)."""
-        people = to_people({k: v.cpu().numpy() for k, v in self.process_async(image).items()})
+        people = to_people({k: v.cpu().numpy() for k, v in self.process_async(image).items()},
+                           self.skeleton)
         out = {"people": people}
         if draw:
             from tpupose_torch.utils.drawing import draw_people

@@ -18,6 +18,7 @@ NCHW tensors in channels_last memory format (the same bytes).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpupose_torch import topology
 from tpupose_torch.ops.block1 import block1
+from tpupose_torch.utils.profiling import annotate
 
 # ModelConfig.compute_dtype -> torch dtype
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -52,13 +54,23 @@ class Conv(nn.Module):
                                   generator=generator)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, pad_rows: bool = True) -> torch.Tensor:
-        """``pad_rows=False``: no zero rows above and below (the caller
-        supplies them, as a tile's halo does): H shrinks by the kernel
-        size less one."""
+    def product(self, x: torch.Tensor, dtype: torch.dtype, pad_rows: bool = True) -> torch.Tensor:
+        """The convolution in ``dtype`` without its bias. ``pad_rows=False``:
+        no zero rows above and below (the caller supplies them, as a tile's
+        halo does): H shrinks by the kernel size less one."""
         pad = self.weight.shape[-1] // 2
-        y = F.conv2d(x.to(dtype), self.weight.to(dtype), padding=(pad if pad_rows else 0, pad))
-        return y + self.bias.to(dtype)[:, None, None]
+        return F.conv2d(x.to(dtype), self.weight.to(dtype), padding=(pad if pad_rows else 0, pad))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, pad_rows: bool = True) -> torch.Tensor:
+        """``product`` plus the bias, added in ``dtype``."""
+        return self.product(x, dtype, pad_rows) + self.bias.to(dtype)[:, None, None]
+
+
+def stage_span():
+    """The span ``net.stages`` around the stage loop of an inference forward
+    (grad off). A training forward records none, so that a train step's
+    spans stay its own layers (``training/loop.py``)."""
+    return contextlib.nullcontext() if torch.is_grad_enabled() else annotate("net.stages")
 
 
 def _hwio(conv: Conv) -> torch.Tensor:
@@ -104,13 +116,17 @@ class VGGBackbone(nn.Module):
             return y.permute(0, 3, 1, 2)
         return F.max_pool2d(self._conv("conv1_2", self._conv("conv1_1", x)), 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """Block 1 .. conv4_1 + ReLU: what conv4_2 reads."""
         x = self.block1(x)
         x = F.max_pool2d(self._conv("conv2_2", self._conv("conv2_1", x)), 2)
         for name in ("conv3_1", "conv3_2", "conv3_3", "conv3_4"):
             x = self._conv(name, x)
         x = F.max_pool2d(x, 2)
-        return self._conv("conv4_2", self._conv("conv4_1", x))
+        return self._conv("conv4_1", x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv("conv4_2", self.trunk(x))
 
 
 class CPMFeature(nn.Module):
@@ -170,7 +186,8 @@ class OpenPose(nn.Module):
 
     ``forward`` takes a normalised (N, H, W, 3) image and returns the
     per-stage list of (paf, heat) in NHWC — the training contract; the
-    inference path keeps the last pair.
+    inference path keeps the last pair. Without grad the stages run inside
+    the span ``net.stages`` (``stage_span``).
 
     ``remat`` (the reference model's field): while autograd records, each
     stage branch runs under ``torch.utils.checkpoint`` and is recomputed
@@ -218,14 +235,15 @@ class OpenPose(nn.Module):
 
     def forward(self, image: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
         feat = self.cpm(self.vgg(image.permute(0, 3, 1, 2)))
-        paf = self._branch("stage1_L1", feat)
-        heat = self._branch("stage1_L2", feat)
-        outputs = [(paf, heat)]
-        for t in range(2, self.num_stages + 1):
-            x = torch.cat([paf.to(self.dtype), heat.to(self.dtype), feat], dim=1)
-            paf = self._branch(f"stage{t}_L1", x)
-            heat = self._branch(f"stage{t}_L2", x)
-            outputs.append((paf, heat))
+        with stage_span():
+            paf = self._branch("stage1_L1", feat)
+            heat = self._branch("stage1_L2", feat)
+            outputs = [(paf, heat)]
+            for t in range(2, self.num_stages + 1):
+                x = torch.cat([paf.to(self.dtype), heat.to(self.dtype), feat], dim=1)
+                paf = self._branch(f"stage{t}_L1", x)
+                heat = self._branch(f"stage{t}_L2", x)
+                outputs.append((paf, heat))
         return [(p.permute(0, 2, 3, 1), h.permute(0, 2, 3, 1)) for p, h in outputs]
 
 

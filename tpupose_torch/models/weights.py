@@ -8,6 +8,8 @@ conv4_2), ``cpm`` (conv4_3_CPM, conv4_4_CPM) and ``stage{t}_L{1,2}``
 (conv1 .. conv5|6, out). The port's modules carry the same names, so the
 state-dict key of ``params[scope][layer]["kernel"]`` is
 ``{scope}.{layer}.weight``. Kernels are HWIO in flax and OIHW in torch.
+The BODY_25 network's PReLU layers hold one leaf, ``slope`` (state-dict
+``{scope}.{layer}.slope``).
 
 The file loaders (counterparts of ``tpupose/models/weights.py``) work on
 that flax-layout tree of numpy arrays: each overlays a file's layers onto
@@ -47,8 +49,8 @@ def from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 if leaf == "kernel":
                     sd[f"{scope}.{layer}.weight"] = torch.from_numpy(
                         np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
-                elif leaf == "bias":
-                    sd[f"{scope}.{layer}.bias"] = torch.from_numpy(arr.copy())
+                elif leaf in ("bias", "slope"):
+                    sd[f"{scope}.{layer}.{leaf}"] = torch.from_numpy(arr.copy())
                 else:
                     raise ValueError(f"unknown leaf {scope}/{layer}/{leaf}")
     return sd
@@ -63,8 +65,8 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict[str, dict[
         if leaf == "weight":
             params.setdefault(scope, {}).setdefault(layer, {})["kernel"] = (
                 np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))
-        elif leaf == "bias":
-            params.setdefault(scope, {}).setdefault(layer, {})["bias"] = arr.copy()
+        elif leaf in ("bias", "slope"):
+            params.setdefault(scope, {}).setdefault(layer, {})[leaf] = arr.copy()
         else:
             raise ValueError(f"unknown state_dict entry {key}")
     return params

@@ -3,7 +3,7 @@
 Each kernel module pairs a hand-written CUDA kernel (``csrc/``) with its
 plain PyTorch version, and dispatches by device: a CPU tensor takes the
 plain version, a CUDA tensor the kernel (built at first use). There is
-no switch that forces either on CUDA. The six inference kernels are
+no switch that forces either on CUDA. The inference kernels are
 registered operators (``torch.library.custom_op``, namespace
 ``tpupose_torch``: the plain version is the CPU kernel, the launch the
 CUDA kernel), so that ``torch.export`` keeps each call as one node of a
@@ -11,12 +11,12 @@ program (``deploy.py``); ``gt``, training only, is called directly.
 """
 
 from tpupose_torch.ops import (  # noqa: F401
-    assoc, block1, gt, image, peak_tables, peaks, pyramid_peaks, sample,
+    assoc, block1, dense_epilogue, gt, image, peak_tables, peaks, pyramid_peaks, sample,
 )
 from tpupose_torch.ops._build import build_all as _build_all
 
 KERNELS = (block1.KERNEL, pyramid_peaks.KERNEL, sample.KERNEL, assoc.KERNEL, gt.KERNEL,
-           peaks.KERNEL, peak_tables.KERNEL)
+           peaks.KERNEL, peak_tables.KERNEL, dense_epilogue.KERNEL)
 
 
 def build_kernels() -> None:

@@ -15,11 +15,11 @@ import ctypes
 
 import torch
 
-from tpupose_torch import topology
 from tpupose_torch.decode.peaks import (
     gaussian_kernel1d, scan_tables, symmetric_index, tap_pass,
 )
 from tpupose_torch.ops._build import CudaKernel
+from tpupose_torch.skeletons import COCO18, Skeleton
 
 _MAX_TAPS = 128
 _SMEM_LIMIT = 227 * 1024
@@ -137,8 +137,8 @@ def peak_scores(maps: torch.Tensor, parts: int = 18, sigma: float = 3.0,
 
 
 def find_peaks_kernel(heatmap: torch.Tensor, max_peaks: int = 96, sigma: float = 3.0,
-                      thre1: float = 0.1) -> dict[str, torch.Tensor]:
+                      thre1: float = 0.1, skeleton: Skeleton = COCO18) -> dict[str, torch.Tensor]:
     """Drop-in for ``decode.peaks.find_peaks`` backed by ``peak_scores``:
-    (H, W, 19) averaged heatmap -> scan-order (18, K) tables."""
-    flat = peak_scores(heatmap[None], topology.NUM_PARTS, sigma, thre1)[0]
+    (H, W, 19) averaged heatmap -> scan-order (18, K) tables (COCO-18)."""
+    flat = peak_scores(heatmap[None], skeleton.num_parts, sigma, thre1)[0]
     return scan_tables(flat, heatmap.shape[1], max_peaks)
