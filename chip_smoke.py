@@ -450,7 +450,10 @@ def _body25_path(torch, np, est, imgs8, card: str) -> None:
     held exactly to COCO's: the same block1, pyramid_peaks, sample and
     assoc launches (the decode is shared, over 25 parts), and 99 epilogues
     a forward (prelu4_2, the two CPM convs, 16 in each of the 6 stages),
-    one forward a scale, each counted by ``net.dense_epilogue`` too."""
+    one forward a scale, each counted by ``net.dense_epilogue`` too. The
+    batch runs three times: op by op, then the stage loop captured as a
+    CUDA graph a scale and replayed, then replayed; the people and the
+    launches of each call are the first call's."""
     from tpupose_torch import ops
     from tpupose_torch.config import DEFAULT
     from tpupose_torch.infer import PoseEstimator
@@ -475,6 +478,24 @@ def _body25_path(torch, np, est, imgs8, card: str) -> None:
             raise AssertionError(f"BODY_25 person with parts {sorted(p['keypoints'])}")
     _say("c", f"arch='body25': process_batch {len(imgs8)}x368x368 x 4 scales: "
               f"{sum(map(len, people))} people; launches {counts} ({card})")
+    # the same batch twice more: the stage loop captured as a CUDA graph a
+    # scale, then replayed; each call launches as the op-by-op one did
+    stages = profiling.counters().get("net.stages.eager", 0)
+    if stages != len(DEFAULT.inference.scale_search):
+        raise AssertionError(f"BODY_25's first batch ran {stages} stage loops op by op")
+    for call in ("capture", "replay"):
+        again, n_again = _sorted_order_calls(torch, lambda: est25.process_batch(imgs8))
+        c = profiling.counters()
+        got = (ops.launch_counts(), c.get("net.dense_epilogue", 0), c.get("net.stages.graph", 0),
+               c.get("net.stages.eager", 0))
+        want_again = ({**want, "peak_tables": n_again}, epilogues,
+                      len(DEFAULT.inference.scale_search), 0)
+        if got != want_again or n_again != n_sorted or again != people:
+            raise AssertionError(f"BODY_25 {call} call: launches, net.dense_epilogue, "
+                                 f"net.stages.graph / eager {got}, not {want_again}, or "
+                                 f"other people than the op-by-op call's")
+        _say("c", f"arch='body25' {call} call: the same people and launches, "
+                  f"{got[2]} stage loops replayed")
     del est25
 
 

@@ -256,3 +256,83 @@ def test_assembly_at_25_parts_against_the_reference(seed):
             assert abs(g["score"] - w["score"]) <= 1e-5 * max(1.0, abs(w["score"]))
             for name, kp in g["keypoints"].items():
                 assert (kp["x"], kp["y"]) == (w["keypoints"][name]["x"], w["keypoints"][name]["y"])
+
+
+# --- the stage loop's CUDA graphs: the engagement rule, on the CPU -------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_net():
+    """The f32 network (full width) on 16 x 16 images: F is 2 x 2."""
+    model = OpenPoseBody25(dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+@pytest.mark.parametrize("case", ["cpu", "grad", "params", "export"])
+def test_stage_graphs_run_op_by_op_unless_every_rule_holds(tiny_net, case, monkeypatch):
+    """Each case breaks one rule of ``StageGraphs.refusal`` (the rules are
+    checked in the order grad, export, params, device, so each case names
+    its own) and runs the stage loop op by op: counted ``net.stages.eager``
+    (under ``torch.export``, where counters stay off, the program holds the
+    loop's 96 epilogues and the front's 3 as its own nodes), never a graph."""
+    from tpupose_torch.models import stage_graph
+    from tpupose_torch.utils import profiling
+
+    said = []
+    refusal = stage_graph.StageGraphs.refusal
+
+    def spy(self, x, tensors):
+        said.append(refusal(self, x, tensors))
+        return said[-1]
+
+    monkeypatch.setattr(stage_graph.StageGraphs, "refusal", spy)
+    x = torch.rand(1, 16, 16, 3, generator=torch.Generator().manual_seed(6))
+    before = profiling.counters()
+    if case == "export":
+        with torch.no_grad():
+            ep = torch.export.export(tiny_net, (x,))
+        nodes = [n for n in ep.graph.nodes if "dense_epilogue" in str(n.target)]
+        assert len(nodes) == 99
+    elif case == "grad":
+        tiny_net(x)
+    else:
+        with torch.no_grad():
+            if case == "params":
+                other = {k: v.clone() for k, v in tiny_net.state_dict().items()}
+                torch.func.functional_call(tiny_net, other, (x,))
+            else:
+                tiny_net(x)
+    after = profiling.counters()
+    assert said == [{"cpu": "device"}.get(case, case)]
+    eager = after.get("net.stages.eager", 0) - before.get("net.stages.eager", 0)
+    assert eager == (0 if case == "export" else 1)
+    assert after.get("net.stages.graph", 0) == before.get("net.stages.graph", 0)
+    assert not tiny_net.stage_graphs._keys
+
+
+def test_stage_graphs_of_a_copy_read_the_copy_s_parameters(tiny_net):
+    """A replica (``copy.deepcopy``, as ``parallel.sharding.replicate_module``
+    makes one) starts with no graphs, its own parameters the copy's."""
+    import copy
+
+    rep = copy.deepcopy(tiny_net)
+    own = rep.stage_graphs.own
+    assert len(own) == len(tiny_net.stage_graphs.own) == 300
+    assert all(a is b for a, b in zip(own, rep.stage_tensors()))
+    assert not any(a is b for a, b in zip(own, tiny_net.stage_tensors()))
+    assert rep.stage_graphs._lock is not tiny_net.stage_graphs._lock and not rep.stage_graphs._keys
+
+
+def test_add_counts_adds_counters_and_launches():
+    """``profiling.add_counts``: a replay's share of the counters, the
+    kernels' launch counts among them."""
+    from tpupose_torch import ops
+    from tpupose_torch.utils import profiling
+
+    before = profiling.counters()
+    profiling.add_counts({"launch.dense_epilogue": 96, "net.dense_epilogue": 96})
+    after = profiling.counters()
+    assert after["launch.dense_epilogue"] - before["launch.dense_epilogue"] == 96
+    assert after["net.dense_epilogue"] - before.get("net.dense_epilogue", 0) == 96
+    assert ops.launch_counts()["dense_epilogue"] == after["launch.dense_epilogue"]

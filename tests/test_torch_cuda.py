@@ -582,6 +582,117 @@ def test_body25_network_on_the_card_against_the_reference(cuda):
             assert (got - want).abs().max().item() <= tol * scale
 
 
+# --- BODY_25's stage loop as one CUDA graph a shape (models/stage_graph.py) ---------------
+
+
+def _body25(cuda, seed: int):
+    from tpupose_torch.config import DEFAULT
+    from tpupose_torch.infer import PoseEstimator
+
+    return PoseEstimator(DEFAULT, seed=seed, device=cuda, arch="body25")
+
+
+def _frames(seed: int, h: int = 720, w: int = 1280) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, (8, h, w, 3)).astype(np.uint8)
+
+
+def _call(est, frames, params=None):
+    """``program``'s steps over one batch at 4 scales, with ``params`` or the
+    model's own weights: ({the people tables, the masked peak scores, each
+    scale's last PAF maps}, the counters the call added)."""
+    from tpupose_torch.utils import profiling
+
+    profiling.reset_counters()
+    with torch.inference_mode():
+        x, _ = est._upload(frames, None)
+        flats, width, paf_in = est._device_scores(params, x, None, None)
+        out = {**est._tables((flats, width, paf_in)), "flats": flats,
+               **{f"paf{i}": m for i, m in enumerate(paf_in.maps)}}
+    torch.cuda.synchronize()
+    return out, profiling.counters()
+
+
+def _same(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_body25_stage_graphs_replay_bit_equal_with_exact_counts(cuda):
+    """Batch 8, 720 x 1280 frames, 4 scales: the first call runs the stage
+    loop op by op, the second captures and replays it, the third replays
+    it; their maps and tables are bit-equal, and each call counts the same launches
+    (99 epilogues a scale, the decode's kernels once) and its own 4
+    ``net.stages.eager`` or ``net.stages.graph``. A second geometry (480 x
+    640) captures graphs of its own; the first still replays bit-equal."""
+    est = _body25(cuda, 0)
+    hd, vga = _frames(1), _frames(2, 480, 640)
+    calls = [_call(est, hd) for _ in range(3)]
+    for i, (tables, counts) in enumerate(calls):
+        assert _same(tables, calls[0][0]), i
+        stages = {"net.stages.eager": 4 * (i == 0), "net.stages.graph": 4 * (i > 0)}
+        assert {k: counts.get(k, 0) for k in stages} == stages, (i, counts)
+        want = {"launch.block1": 4, "launch.pyramid_peaks": 1, "launch.sample": 1,
+                "launch.assoc": 1, "launch.gt": 0, "launch.peaks": 0,
+                "launch.peak_tables": counts.get("decode.tables.sorted", 0),
+                "launch.dense_epilogue": 396, "net.dense_epilogue": 396}
+        assert {k: counts.get(k, 0) for k in want} == want, (i, counts)
+        assert {k: v for k, v in counts.items() if k not in stages} == {
+            k: v for k, v in calls[0][1].items() if k not in stages}, i
+    second = [_call(est, vga) for _ in range(2)]
+    assert _same(second[0][0], second[1][0])
+    assert [c.get("net.stages.graph", 0) for _, c in second] == [0, 4]
+    again, counts = _call(est, hd)
+    assert _same(again, calls[0][0]) and counts.get("net.stages.graph", 0) == 4
+    assert len(est.model.stage_graphs._keys) == 8
+
+
+def test_body25_program_with_other_params_runs_them_op_by_op(cuda):
+    """``program(params=)`` with another estimator's tensors, after the
+    model's own graphs are captured: the op-by-op result of those tensors
+    (bit-equal to the other estimator's first, op-by-op call), not a
+    replay of the model's own weights."""
+    est, other = _body25(cuda, 0), _body25(cuda, 3)
+    frames = _frames(4)
+    own = [_call(est, frames) for _ in range(2)][-1][0]
+    got, counts = _call(est, frames, other.model.state_dict())
+    assert counts.get("net.stages.eager", 0) == 4 and counts.get("net.stages.graph", 0) == 0
+    want, _ = _call(other, frames)
+    assert _same(got, want) and not _same(got, own)
+
+
+def test_body25_stage_graphs_read_weights_updated_in_place(cuda):
+    """``load_state_dict`` into a model whose graphs are captured keeps the
+    storages: the next call replays and its tables are those of the new
+    weights (bit-equal to an estimator built with them, op by op)."""
+    est, other = _body25(cuda, 0), _body25(cuda, 5)
+    frames = _frames(6)
+    old = [_call(est, frames) for _ in range(2)][-1][0]
+    est.model.load_state_dict(other.model.state_dict())
+    got, counts = _call(est, frames)
+    assert counts.get("net.stages.graph", 0) == 4 and counts.get("net.stages.eager", 0) == 0
+    want, _ = _call(other, frames)
+    assert _same(got, want) and not _same(got, old)
+
+
+def test_body25_replayed_epilogues_are_in_the_device_trace(cuda):
+    """A replayed batch under ``posebench.trace.profiled``: the trace lists
+    the ``dense_epilogue`` kernels by name, 99 a scale (the 96 replayed and
+    the front's 3), which ``dense_epilogue_roofline`` reads."""
+    from posebench.trace import WINDOW, profiled
+
+    est = _body25(cuda, 0)
+    frames = _frames(7)
+    for _ in range(2):
+        _call(est, frames)
+
+    def traced(span):
+        with span(WINDOW):
+            _call(est, frames)
+        return {}
+
+    trace = profiled(traced, ())
+    assert trace.launches("dense_epilogue") == 396 and trace.seconds("dense_epilogue") > 0
+
+
 @pytest.mark.parametrize("value", [float("nan"), float("inf"), -float("inf")])
 def test_assoc_kernel_on_nonfinite_priors(cuda, value):
     """Candidate tables whose priors hold NaN or +-inf on live pairs: the

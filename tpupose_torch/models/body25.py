@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from tpupose_torch.models.openpose import Conv, VGGBackbone, stage_span
+from tpupose_torch.models.stage_graph import StageGraphs
 from tpupose_torch.ops.dense_epilogue import dense_epilogue
 from tpupose_torch.skeletons import BODY25
 
@@ -151,7 +152,9 @@ class OpenPoseBody25(nn.Module):
     52) and the last heat stage's (N, H/8, W/8, 26) maps in f32 NHWC: the
     inference contract of ``OpenPose`` (whose list holds every stage's
     pair; the last is read). The stages run inside the span ``net.stages``
-    (``openpose.stage_span``).
+    (``openpose.stage_span``): on the card with grad off and the module's
+    own parameters, as one CUDA graph a shape (``stage_graph.StageGraphs``),
+    else op by op.
     """
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
@@ -162,6 +165,8 @@ class OpenPoseBody25(nn.Module):
         self.cpm = Body25Front(dtype)
         for scope, cin, w, h, out in STAGES:
             self.add_module(scope, Stage(scope, cin, w, h, out, dtype, head_dtype))
+        self._stage_leaves = [m for scope, *_ in STAGES for m in getattr(self, scope).children()]
+        self.stage_graphs = StageGraphs(self.stage_tensors())
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init in module order: lecun-normal kernels and zero biases
@@ -172,16 +177,27 @@ class OpenPoseBody25(nn.Module):
             elif isinstance(m, PReLU):
                 m.reset_parameters()
 
-    def forward(self, image: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        feat = self.cpm(self.vgg, image.permute(0, 3, 1, 2))
+    def stage_tensors(self) -> list[torch.Tensor]:
+        """The parameters the stage loop reads, as the stages hold them now
+        (``functional_call`` swaps them in)."""
+        return [t for m in self._stage_leaves for t in m._parameters.values()]
+
+    def stages(self, feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The stage loop, op by op: F (N, 128, H, W) -> the last PAF and
+        heat maps, NCHW in channels_last memory, f32."""
         dt = self.dtype
         paf = heat = None
+        for scope, *_ in STAGES:
+            stage = getattr(self, scope)
+            if scope.endswith("L2"):
+                paf = stage(feat if paf is None else torch.cat([feat, paf.to(dt)], dim=1))
+            else:
+                parts = [feat, paf] if heat is None else [feat, heat, paf]
+                heat = stage(torch.cat([t.to(dt) for t in parts], dim=1))
+        return paf, heat
+
+    def forward(self, image: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        feat = self.cpm(self.vgg, image.permute(0, 3, 1, 2))
         with stage_span():
-            for scope, *_ in STAGES:
-                stage = getattr(self, scope)
-                if scope.endswith("L2"):
-                    paf = stage(feat if paf is None else torch.cat([feat, paf.to(dt)], dim=1))
-                else:
-                    parts = [feat, paf] if heat is None else [feat, heat, paf]
-                    heat = stage(torch.cat([t.to(dt) for t in parts], dim=1))
+            paf, heat = self.stage_graphs(self.stages, feat, self.stage_tensors())
         return [(paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1))]

@@ -22,9 +22,10 @@ child spans on the same thread cover) to ``span_totals()``. Under
 ``torch.export`` a span is a no-op.
 
 ``count(name)`` is an always-on counter of the program (the decode's
-``decode.tables.sorted`` / ``decode.tables.scan``); ``counters()`` returns
+``decode.tables.sorted`` / ``decode.tables.scan``, BODY_25's
+``net.stages.graph`` / ``net.stages.eager``); ``counters()`` returns
 them with the kernels' launch counts (``ops.launch_counts()``) as
-``launch.<kernel>``.
+``launch.<kernel>``; ``add_counts`` adds a replayed CUDA graph's share.
 """
 
 from __future__ import annotations
@@ -163,6 +164,20 @@ def count(name: str, n: int = 1) -> None:
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def add_counts(counts: dict[str, int]) -> None:
+    """Adds a difference of two ``counters()`` readings: the counters and
+    kernel launches of work that the device runs again without its Python
+    (a CUDA graph's replay)."""
+    from tpupose_torch import ops
+
+    kernels = {f"launch.{k.name}": k for k in ops.KERNELS}
+    for name, n in counts.items():
+        if name in kernels:
+            kernels[name].launches += n
+        else:
+            count(name, n)
 
 
 def counters() -> dict[str, int]:
